@@ -1,0 +1,64 @@
+"""Kernel 1: the content-independent DDA chunk roll (``csrc/roll.cu``).
+
+Replaces ``cpuvox_tpu/ops/roll_kernel.py::roll_chunk_pallas``.  One CUDA
+thread per ray keeps the DDA state in registers for the chunk's C steps and
+writes the visit list as (C, 13, R) int32, f32 fields as their bits:
+
+  [0] pos_x   [1] pos_z   [2] ids0   [3] ids1   [4] lod   [5] valid
+  [6] pre_pos_x [7] pre_pos_z [8] pre_tmax_x [9] pre_tmax_z
+  [10] pre_ids0 [11] pre_ids1 [12] pre_lod
+
+``roll_chunk`` takes the plain version for CPU tensors and launches the kernel
+for CUDA tensors.  The kernel updates the DDA state and ``alive`` in place
+(saving a copy of the state per chunk) and returns them.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from cpuvox_tpu_torch.render import raymarch as rm
+
+from . import _build
+
+launches = 0  # kernel launches since the last reset (plain calls not counted)
+
+roll_chunk_ref = rm._roll_chunk
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = [_P] * 9 + [_I, ctypes.c_float, _I, _I, _I, _I, _P, _P]
+
+
+def roll_chunk(dda: rm.DDAState, alive, dirs, lod_distances, far_clip, dims,
+               chunk: int):
+    """Roll every ray ``chunk`` cells; same signature and result as
+    ``raymarch._roll_chunk``: (dda, alive, visits (chunk, 13, R) int32)."""
+    global launches
+    if not dda.pos.is_cuda:
+        return roll_chunk_ref(dda, alive, dirs, lod_distances, far_clip, dims,
+                              chunk)
+    R = dda.pos.shape[0]
+    g = _build.require
+    ptrs = [
+        g(dda.pos, torch.int32, (R, 2), "pos"),
+        g(dda.tmax, torch.float32, (R, 2), "tmax"),
+        g(dda.tdelta, torch.float32, (R, 2), "tdelta"),
+        g(dda.stp, torch.int32, (R, 2), "stp"),
+        g(dda.ids, torch.float32, (R, 2), "ids"),
+        g(dda.lod, torch.int32, (R,), "lod"),
+        g(alive, torch.bool, (R,), "alive"),
+        g(dirs, torch.float32, (R, 2), "dirs"),
+        g(lod_distances, torch.float32, None, "lod_distances"),
+    ]
+    visits = torch.empty((chunk, rm.NVF, R), dtype=torch.int32,
+                         device=dda.pos.device)
+    fn = _build.function("cpuvox_roll_chunk", _ARGTYPES)
+    code = fn(*ptrs, lod_distances.numel(), float(np.float32(far_clip)),
+              int(dims[0]), int(dims[2]), chunk, R, visits.data_ptr(),
+              _build.stream_ptr(visits))
+    _build.check(code, "cpuvox_roll_chunk")
+    launches += 1
+    return dda, alive, visits

@@ -1,0 +1,708 @@
+"""Phase-1 ray march in plain PyTorch: the port's twin of the XLA reference.
+
+Counterpart of ``cpuvox_tpu/render/raymarch.py`` (dense branch).  Every
+function keeps the reference's float operation order, so on the same inputs
+it gives the same bits; the CUDA kernels in ``cpuvox_tpu_torch.ops`` are held
+against these functions.  Semantics are the oracle's (DrawSegmentRayJob.cs
+ExecuteRay, re-expressed data-parallel over all rays):
+
+- the per-ray ``while(true)`` march becomes a Python loop over chunks: each
+  chunk rolls the content-independent DDA ``chunk`` cells per ray, fetches the
+  visited columns' records, then rasterizes the cells in order;
+- ``return``/``break`` early-outs become per-ray ``alive`` masks;
+- the raybuffer holds int32 color indices into ``WorldArrays.colors``
+  (skybox = 0, unwritten = -1), resolved to ARGB once per frame.
+
+Where torch and XLA differ on the same expression, the port follows XLA:
+
+- f32 -> i32 casts saturate (``to_i32``), as XLA's convert does;
+- ``torch.round`` rounds half to even, like ``jnp.round``;
+- min/max go through ``_min``/``_max``, which pass a NaN operand through as
+  XLA does (torch's ``amin``/``amax`` return a canonical NaN instead, a
+  different bit pattern);
+- nothing uses ``torch.lerp``/``addcmul``: each ``a + (b - a) * t`` is written
+  out so every product and sum is rounded on its own.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from cpuvox_tpu_torch.shared import device as shared_device
+
+BIG = 1 << 24
+I32_MIN = -(1 << 31)
+I32_MAX = (1 << 31) - 1
+NVF = 13  # visit fields per DDA step (order in ops/roll_kernel.py)
+
+
+class RayStatic(NamedTuple):
+    """Per-ray constants (host-built)."""
+
+    dirs: torch.Tensor  # (R, 2) f32 normalized XZ dir
+    plane_bottom: torch.Tensor  # (R, 3) f32 projected column base
+    plane_top: torch.Tensor  # (R, 3) f32
+    plane_dir: torch.Tensor  # (R, 3) f32
+    orig_min: torch.Tensor  # (R,) i32 segment pixel range
+    orig_max: torch.Tensor  # (R,) i32
+
+
+class DDAState(NamedTuple):
+    pos: torch.Tensor  # (R, 2) i32
+    tmax: torch.Tensor  # (R, 2) f32
+    tdelta: torch.Tensor  # (R, 2) f32
+    stp: torch.Tensor  # (R, 2) i32
+    ids: torch.Tensor  # (R, 2) f32 intersection distances (last, next)
+    lod: torch.Tensor  # (R,) i32
+
+
+class RasterState(NamedTuple):
+    raybuf: torch.Tensor  # (R, P) i32 color indices, -1 unwritten
+    nfp_min: torch.Tensor  # (R,) i32
+    nfp_max: torch.Tensor  # (R,) i32
+    fb_min: torch.Tensor  # (R,) f32 frustum bounds
+    fb_max: torch.Tensor  # (R,) f32
+    f_active: torch.Tensor  # (R,) bool: frustum narrowing active
+    fdir_min: torch.Tensor  # (R,) f32
+    fdir_max: torch.Tensor  # (R,) f32
+    alive: torch.Tensor  # (R,) bool
+
+
+class WorldArrays(NamedTuple):
+    """The device world for the dense branch: inline column records only."""
+
+    col_base: torch.Tensor  # (8,) i32 first column of each LOD
+    grid_z: torch.Tensor  # (8,) i32 columns per x-row of each LOD
+    rec_fwd: torch.Tensor  # (n_cols, RW) i32 [n_runs, color_off, cmin, cmax, runs]
+    rec_rev: torch.Tensor  # the same with each column's runs reversed
+    colors: torch.Tensor  # (n_colors,) i32 view of uint32 ARGB, [0] = skybox
+    max_runs: int
+
+
+class CellFields(NamedTuple):
+    """One chunk's visited cells, (C, R) each: the rasterizer's input."""
+
+    ids: torch.Tensor  # (C, R, 2) f32
+    lod: torch.Tensor  # (C, R) i32
+    valid: torch.Tensor  # (C, R) bool
+    n_runs: torch.Tensor  # (C, R) i32
+    color_off: torch.Tensor  # (C, R) i32
+    cmin: torch.Tensor  # (C, R) i32
+    cmax: torch.Tensor  # (C, R) i32
+    runs: torch.Tensor  # (C, R, max_runs) i32 [color index << 16 | length]
+
+
+def to_i32(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> i32 as XLA converts: truncate toward zero and saturate.
+
+    torch on the CPU maps every out-of-range value and NaN to INT32_MIN; XLA
+    maps +huge/+inf to INT32_MAX, -huge/-inf to INT32_MIN and NaN to 0.
+    (2**31 is exact in f32; every f32 below it converts exactly.)
+    """
+    hi = x >= 2147483648.0
+    lo = x < -2147483648.0
+    bad = hi | lo | torch.isnan(x)
+    out = torch.where(bad, torch.zeros_like(x), x).to(torch.int32)
+    out = torch.where(hi, I32_MAX, out)
+    return torch.where(lo, I32_MIN, out)
+
+
+def _min(a, b):
+    """NaN-propagating minimum that returns the NaN operand itself (its bits),
+    as XLA's minimum and the kernels' ``cpuvox::min_nan`` do."""
+    return torch.where(torch.isnan(a), a,
+                       torch.where(torch.isnan(b), b, torch.where(b < a, b, a)))
+
+
+def _max(a, b):
+    """NaN-propagating maximum; see ``_min``."""
+    return torch.where(torch.isnan(a), a,
+                       torch.where(torch.isnan(b), b, torch.where(a < b, b, a)))
+
+
+def world_arrays(dw, device) -> WorldArrays:
+    """The shared numpy ``DeviceWorld`` as the port's tensors (counterpart of
+    ``cpuvox_tpu/render/raymarch.py:238``).  Colors stay int32 inside torch
+    (uint32 arithmetic in torch is thin); they are viewed back as uint32 at
+    the numpy boundary."""
+    if dw.max_col_colors:
+        raise NotImplementedError("ARGB records (inline colors) are not ported")
+    if dw.rec_fwd is None:
+        raise NotImplementedError(
+            f"split record layout (max_runs {dw.max_runs} > "
+            f"{shared_device.INLINE_MAX_RUNS}) is not ported")
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    return WorldArrays(
+        col_base=put(dw.col_base), grid_z=put(dw.grid_z),
+        rec_fwd=put(dw.rec_fwd), rec_rev=put(dw.rec_rev),
+        colors=put(dw.colors.view(np.int32)), max_runs=int(dw.max_runs))
+
+
+def _cell_index(wa: WorldArrays, lodc, xc, zc):
+    """Column index of visited cells: col_base[lod] + xc * grid_z[lod] + zc
+    (``raymarch.py:100`` without the world-shard window)."""
+    return wa.col_base[lodc] + xc * wa.grid_z[lodc] + zc
+
+
+def _fetch_columns(wa: WorldArrays, ci, v_valid, iteration_direction: int):
+    """Fetch the visited columns' meta + runs from the inline records
+    (``raymarch.py:158``): (n_runs, color_off, cmin, cmax, runs).
+
+    Records whose run region is 16-bit packed are unpacked to the int32 run
+    format: the color index is an exclusive cumsum of solid lengths (forward);
+    the reversed table keeps each run's forward index,
+    total_solid - cum_before_rev - length.
+    """
+    max_runs = wa.max_runs
+    rec_src = wa.rec_fwd if iteration_direction > 0 else wa.rec_rev
+    rec = rec_src.index_select(0, ci.reshape(-1).long())
+    rec = rec.reshape(ci.shape + (rec.shape[-1],))
+    n_runs = torch.where(v_valid, rec[..., 0], 0)
+    color_off = rec[..., 1]
+    cmin = rec[..., 2]
+    cmax = rec[..., 3]
+    meta = shared_device.REC_META
+    rwords = shared_device.packed_run_words(max_runs)
+    if rwords == max_runs:
+        return n_runs, color_off, cmin, cmax, rec[..., meta:meta + rwords]
+    words = rec[..., meta:meta + rwords]
+    lo = words & 0xFFFF
+    hi = (words >> 16) & 0xFFFF  # logical shift: the high half is unsigned
+    halves = torch.stack([lo, hi], dim=-1).reshape(
+        words.shape[:-1] + (2 * rwords,))[..., :max_runs]
+    length = halves & 0x7FFF
+    air = (halves & 0x8000) != 0
+    solid_len = torch.where(air, 0, length)
+    cum = torch.cumsum(solid_len, dim=-1, dtype=torch.int32)
+    cum_excl = cum - solid_len
+    if iteration_direction > 0:
+        cidx = cum_excl
+    else:
+        cidx = cum[..., -1:] - cum_excl - length
+    runs = torch.where(air, (-1 << 16) | length, (cidx << 16) | length)
+    k = torch.arange(max_runs, dtype=torch.int32, device=rec.device)
+    runs = torch.where(k < rec[..., 0:1], runs, 0)
+    return n_runs, color_off, cmin, cmax, runs
+
+
+# ------------------------------------------------------------------ DDA roll
+
+
+def _dda_step(dda: DDAState, far_clip):
+    """SegmentDDAData.Step (:135-150), batched (``raymarch.py:419``).
+
+    ``tmax + where(bump, tdelta, 0.0)`` maps -0.0 to +0.0 exactly as the
+    reference does; ``where(bump, tmax + tdelta, tmax)`` would not."""
+    x_first = dda.tmax[:, 0] < dda.tmax[:, 1]
+    crossed = torch.where(x_first, dda.tmax[:, 0], dda.tmax[:, 1])
+    bump = torch.stack([x_first, ~x_first], dim=1)
+    tmax = dda.tmax + torch.where(bump, dda.tdelta, 0.0)
+    pos = dda.pos + torch.where(bump, dda.stp, 0)
+    ids = torch.stack([crossed, _min(tmax[:, 0], tmax[:, 1])], dim=1)
+    hit_far = crossed >= far_clip
+    return dda._replace(pos=pos, tmax=tmax, ids=ids), hit_far
+
+
+def _dda_next_lod(dda: DDAState, dirs):
+    """SegmentDDAData.NextLOD (:31-73), batched (``raymarch.py:431``).
+    Axis-parallel rays give inf - inf = NaN here; _min/_max propagate it."""
+    vsize = 1 << dda.lod
+    rem = dda.pos & (2 * vsize - 1)[:, None]
+    tmax_prev = dda.tmax - dda.tdelta
+    low = rem < vsize[:, None]
+    inc = (dirs >= 0) == low
+    tmax = torch.where(inc, dda.tmax + dda.tdelta, dda.tmax)
+    tmax_prev = torch.where(~inc, tmax_prev - dda.tdelta, tmax_prev)
+    ids = torch.stack([_max(tmax_prev[:, 0], tmax_prev[:, 1]),
+                       _min(tmax[:, 0], tmax[:, 1])], dim=1)
+    return dda._replace(pos=dda.pos - rem, tmax=tmax, tdelta=dda.tdelta * 2.0,
+                        stp=dda.stp * 2, ids=ids, lod=dda.lod + 1)
+
+
+def _select(mask, new: DDAState, old: DDAState) -> DDAState:
+    return DDAState(*(torch.where(mask.reshape((-1,) + (1,) * (a.dim() - 1)),
+                                  b, a) for a, b in zip(old, new)))
+
+
+def _roll_chunk(dda: DDAState, alive, dirs, lod_distances, far_clip, dims,
+                chunk: int):
+    """Advance every ray ``chunk`` cells and record each visit
+    (``raymarch.py:445``): lod switch -> visit cell -> step, plus the
+    out-of-world retire.  Returns (dda, alive, visits) with visits a
+    (chunk, 13, R) int32 stack, f32 fields as their bits, in the order of
+    ``ops/roll_kernel.py``: pos x/z, ids 0/1, lod, valid, then the
+    pre-switch snapshot pos x/z, tmax x/z, ids 0/1, lod (the gated march's
+    rewind anchor; the dense march reads only the first six)."""
+    X, Z = dims[0], dims[2]
+    R = dda.pos.shape[0]
+    nld = lod_distances.shape[0]
+    vis = torch.empty((chunk, NVF, R), dtype=torch.int32, device=dda.pos.device)
+    for c in range(chunk):
+        pre = (dda.pos, dda.tmax, dda.ids, dda.lod)
+        ldist = lod_distances[dda.lod.clamp(0, nld - 1)]
+        switch = alive & (dda.ids[:, 0] >= ldist)
+        dda = _select(switch, _dda_next_lod(dda, dirs), dda)
+        in_bounds = ((dda.pos[:, 0] >= 0) & (dda.pos[:, 0] < X)
+                     & (dda.pos[:, 1] >= 0) & (dda.pos[:, 1] < Z))
+        alive = alive & in_bounds
+        v = vis[c]
+        v[0], v[1] = dda.pos[:, 0], dda.pos[:, 1]
+        v[2], v[3] = dda.ids[:, 0].view(torch.int32), dda.ids[:, 1].view(torch.int32)
+        v[4], v[5] = dda.lod, alive.to(torch.int32)
+        v[6], v[7] = pre[0][:, 0], pre[0][:, 1]
+        v[8], v[9] = pre[1][:, 0].view(torch.int32), pre[1][:, 1].view(torch.int32)
+        v[10], v[11] = pre[2][:, 0].view(torch.int32), pre[2][:, 1].view(torch.int32)
+        v[12] = pre[3]
+        stepped, hit_far = _dda_step(dda, far_clip)
+        dda = _select(alive, stepped, dda)
+        alive = alive & ~hit_far
+    return dda, alive, vis
+
+
+# ------------------------------------------------------------------ rasterize
+
+
+def _next_unwritten_geq(seen, c):
+    """First y >= c with seen[y] False, else BIG; (R, P) x (R,) -> (R,)."""
+    pix = torch.arange(seen.shape[1], dtype=torch.int32, device=seen.device)
+    cand = torch.where((~seen) & (pix[None, :] >= c[:, None]), pix[None, :], BIG)
+    return cand.amin(1)
+
+
+def _prev_unwritten_leq(seen, c):
+    """Last y <= c with seen[y] False, else -BIG."""
+    pix = torch.arange(seen.shape[1], dtype=torch.int32, device=seen.device)
+    cand = torch.where((~seen) & (pix[None, :] <= c[:, None]), pix[None, :], -BIG)
+    return cand.amax(1)
+
+
+def _clip_world_bounds(p_min, p_max, fmin, fmax):
+    """Batched CameraData.GetWorldBoundsClippingCamSpace (CameraData.cs:51-121).
+    p_min/p_max: (R, 3); fmin/fmax: (R,).  Returns (clipped, min_lerp, max_lerp)."""
+
+    def clip_pair(frustum):
+        finv = 1.0 / frustum
+        c0 = p_max[:, 0] * finv - p_max[:, 2]
+        c1 = p_min[:, 0] * finv - p_min[:, 2]
+        return 1.0 - (c0 / (c0 - c1)), c1 / (c1 - c0)
+
+    min_at_fmax, max_at_fmax = clip_pair(fmax)
+    min_at_fmin, max_at_fmin = clip_pair(fmin)
+
+    amin = p_min[:, 0] > p_min[:, 2] * fmax  # min endpoint above the max frustum
+    amax = p_max[:, 0] > p_max[:, 2] * fmax
+    bmin = p_min[:, 0] < p_min[:, 2] * fmin  # below the min frustum
+    bmax = p_max[:, 0] < p_max[:, 2] * fmin
+    clipped = (amin & amax) | (~amin & ~amax & bmin & bmax)
+
+    zero = torch.zeros_like(min_at_fmax)
+    one = torch.ones_like(min_at_fmax)
+    min_lerp = torch.where(
+        amin, min_at_fmax,
+        torch.where(amax, torch.where(bmin, min_at_fmin, zero),
+                    torch.where(bmin & ~bmax, min_at_fmin, zero)))
+    max_lerp = torch.where(
+        amin, torch.where(bmax, max_at_fmin, one),
+        torch.where(amax, max_at_fmax,
+                    torch.where(~bmin & bmax, max_at_fmin, one)))
+    return clipped, min_lerp, max_lerp
+
+
+def _near_clip_line(a, b, u_a=None, u_b=None):
+    """Batched CameraData.ClipHomogeneousCameraSpaceLine (:124-157).  The lerps
+    are written out (``b + (a - b) * v``), never ``torch.lerp``."""
+    a_behind = a[:, 1] <= 0.0
+    b_behind = b[:, 1] <= 0.0
+    visible = ~(a_behind & b_behind)
+    v_a = (b[:, 1] / (b[:, 1] - a[:, 1]))[:, None]
+    v_b = (a[:, 1] / (a[:, 1] - b[:, 1]))[:, None]
+    clip_a = a_behind & ~b_behind
+    clip_b = b_behind & ~a_behind
+    a2 = torch.where(clip_a[:, None], b + (a - b) * v_a, a)
+    b2 = torch.where(clip_b[:, None], a + (b - a) * v_b, b)
+    if u_a is None:
+        return visible, a2, b2
+    u_a2 = torch.where(clip_a, u_b + (u_a - u_b) * v_a[:, 0], u_a)
+    u_b2 = torch.where(clip_b, u_a + (u_b - u_a) * v_b[:, 0], u_b)
+    return visible, a2, b2, u_a2, u_b2
+
+
+def _reduce_pixel_horizon(rs: RasterState, rb_min, rb_max, mask):
+    """Batched ReducePixelHorizon (DrawSegmentRayJob.cs:660-697) with the exact
+    frontier scans.  Returns (rs', rb_min', rb_max')."""
+    seen = rs.raybuf >= 0
+    c1 = mask & (rb_min <= rs.nfp_min)
+    rb_min2 = torch.where(c1, rs.nfp_min, rb_min)
+    inner1 = c1 & (rb_max >= rs.nfp_min)
+    new_min = _next_unwritten_geq(seen, rb_max + 1)
+    nfp_min = torch.where(inner1, new_min, rs.nfp_min)
+    fb_min = torch.where(inner1, new_min.float() - 0.501, rs.fb_min)
+
+    c2 = mask & (rb_max >= rs.nfp_max)
+    rb_max2 = torch.where(c2, rs.nfp_max, rb_max)
+    inner2 = c2 & (rb_min2 <= rs.nfp_max)
+    new_max = _prev_unwritten_leq(seen, rb_min2 - 1)
+    nfp_max = torch.where(inner2, new_max, rs.nfp_max)
+    fb_max = torch.where(inner2, new_max.float() + 0.501, rs.fb_max)
+    return rs._replace(nfp_min=nfp_min, nfp_max=nfp_max, fb_min=fb_min,
+                       fb_max=fb_max), rb_min2, rb_max2
+
+
+def _write_span(rs: RasterState, rb_min, rb_max, values, mask):
+    """Masked span write into unwritten pixels of [rb_min, rb_max] of rows in
+    ``mask``.  Rows that wrote drop frustum narrowing (:522,598).  Returns
+    (rs', killed), killed = rows whose free range closed (:535-539)."""
+    pix = torch.arange(rs.raybuf.shape[1], dtype=torch.int32,
+                       device=rs.raybuf.device)[None, :]
+    in_span = (pix >= rb_min[:, None]) & (pix <= rb_max[:, None]) & mask[:, None]
+    do_write = in_span & (rs.raybuf < 0)
+    raybuf = torch.where(do_write, values, rs.raybuf)
+    wrote = do_write.any(1)
+    killed = mask & (rs.nfp_min > rs.nfp_max)
+    return rs._replace(raybuf=raybuf, f_active=rs.f_active & ~wrote), killed
+
+
+def _rasterize_step(rs: RasterState, cell, static: RayStatic, consts,
+                    iteration_direction: int, max_runs: int) -> RasterState:
+    """Process one visited cell for every ray (the body of ExecuteRay:245-611;
+    ``raymarch.py:661``).  ``cell`` = (ids (R, 2), lod, valid, n_runs,
+    color_off, cmin, cmax, runs (R, max_runs))."""
+    ids, lod, valid, n_runs, color_off, cmin, cmax, runs_k = cell
+    world_max_y = consts["world_max_y"]
+    cam_y = consts["cam_y"]
+    cam_y_norm = consts["cam_y_norm"]
+
+    alive = rs.alive & valid
+
+    # ---- frustum-vs-column cull (:258-281); empty columns skip it
+    nonempty = n_runs > 0
+    dist_top = torch.where(rs.fdir_max > 0.0, ids[:, 1], ids[:, 0])
+    dist_bot = torch.where(rs.fdir_min < 0.0, ids[:, 1], ids[:, 0])
+    new_max = cam_y + rs.fdir_max * dist_top
+    new_min = cam_y + rs.fdir_min * dist_bot
+    f_act = rs.f_active
+    cull_world = alive & nonempty & f_act & ((new_min > world_max_y)
+                                             | (new_max < 0.0))
+    alive = alive & ~cull_world
+    if consts.get("solid_max_y") is not None:
+        # solid-bound kill (output-exact; see the reference's comment)
+        kill_solid = alive & f_act & (
+            ((rs.fdir_min >= 0.0) & (new_min > consts["solid_max_y"]))
+            | ((rs.fdir_max <= 0.0) & (new_max < consts["solid_min_y"])))
+        alive = alive & ~kill_solid
+    skip_col = f_act & ((cmin.float() > new_max) | (cmax.float() < new_min))
+    wb_min = torch.where(f_act, new_min, 0.0)
+    wb_max = torch.where(f_act, new_max, world_max_y)
+    process = alive & ~skip_col & (n_runs > 0)
+
+    # ---- project the world column at both intersections (:289-293)
+    cs_min_last = static.plane_bottom + static.plane_dir * ids[:, 0:1]
+    cs_min_next = static.plane_bottom + static.plane_dir * ids[:, 1:2]
+    cs_max_last = static.plane_top + static.plane_dir * ids[:, 0:1]
+    cs_max_next = static.plane_top + static.plane_dir * ids[:, 1:2]
+
+    # ---- writable-frustum re-clip when dirty (:295-422)
+    do_clip = process & (ids[:, 0] > 2.0) & ~f_act
+    cl_clipped, cl_min, cl_max = _clip_world_bounds(
+        cs_min_last, cs_max_last, rs.fb_min, rs.fb_max)
+    cn_clipped, cn_min, cn_max = _clip_world_bounds(
+        cs_min_next, cs_max_next, rs.fb_min, rs.fb_max)
+
+    kill_clip = do_clip & cl_clipped & cn_clipped
+    alive = alive & ~kill_clip
+    process = process & ~kill_clip
+    do_clip = do_clip & ~kill_clip
+
+    case_l = cl_clipped
+    case_n = ~cl_clipped & cn_clipped
+    sel_min_lerp = torch.where(case_l, cn_min, torch.where(
+        case_n, cl_min, _min(cl_min, cn_min)))
+    sel_max_lerp = torch.where(case_l, cn_max, torch.where(
+        case_n, cl_max, _max(cl_max, cn_max)))
+    wbc_min = world_max_y * sel_min_lerp  # lerp(0, maxY, t)
+    wbc_max = world_max_y * sel_max_lerp
+    dist_for_min = torch.where(case_l, ids[:, 1], torch.where(
+        case_n, ids[:, 0], torch.where(cl_min < cn_min, ids[:, 0], ids[:, 1])))
+    dist_for_max = torch.where(case_l, ids[:, 1], torch.where(
+        case_n, ids[:, 0], torch.where(cl_max > cn_max, ids[:, 0], ids[:, 1])))
+    fdir_min_new = (wbc_min - cam_y) / dist_for_min
+    fdir_max_new = (wbc_max - cam_y) / dist_for_max
+
+    def screen_x(base_min, base_max, t):
+        p = base_min + (base_max - base_min) * t[:, None]
+        return p[:, 0] / p[:, 2]
+
+    l_min_x = screen_x(cs_min_last, cs_max_last, cl_min)
+    l_max_x = screen_x(cs_min_last, cs_max_last, cl_max)
+    n_min_x = screen_x(cs_min_next, cs_max_next, cn_min)
+    n_max_x = screen_x(cs_min_next, cs_max_next, cn_max)
+    l_lo = _min(l_min_x, l_max_x)
+    l_hi = _max(l_min_x, l_max_x)
+    n_lo = _min(n_min_x, n_max_x)
+    n_hi = _max(n_min_x, n_max_x)
+    cs_clip_min = torch.where(case_l, n_lo, torch.where(
+        case_n, l_lo, _min(l_lo, n_lo)))
+    cs_clip_max = torch.where(case_l, n_hi, torch.where(
+        case_n, l_hi, _max(l_hi, n_hi)))
+
+    wb_min = torch.where(do_clip, torch.floor(wbc_min), wb_min)
+    wb_max = torch.where(do_clip, torch.ceil(wbc_max), wb_max)
+    fdir_min_st = torch.where(do_clip, fdir_min_new, rs.fdir_min)
+    fdir_max_st = torch.where(do_clip, fdir_max_new, rs.fdir_max)
+    f_active_new = rs.f_active | do_clip
+
+    writable_min = to_i32(torch.floor(cs_clip_min))
+    writable_max = to_i32(torch.ceil(cs_clip_max))
+    kill_miss = do_clip & ((writable_max < rs.nfp_min)
+                           | (writable_min > rs.nfp_max))
+    alive = alive & ~kill_miss
+    process = process & ~kill_miss
+    do_clip = do_clip & ~kill_miss
+
+    seen = rs.raybuf >= 0
+    adv_min = do_clip & (writable_min > rs.nfp_min)
+    nfp_min2 = torch.where(adv_min, _next_unwritten_geq(seen, writable_min),
+                           rs.nfp_min)
+    adv_max = do_clip & (writable_max < rs.nfp_max)
+    nfp_max2 = torch.where(adv_max, _prev_unwritten_leq(seen, writable_max),
+                           rs.nfp_max)
+    kill_closed = do_clip & (nfp_min2 > nfp_max2)
+    alive = alive & ~kill_closed
+    process = process & ~kill_closed
+
+    rs = rs._replace(nfp_min=nfp_min2, nfp_max=nfp_max2,
+                     fdir_min=fdir_min_st, fdir_max=fdir_max_st,
+                     f_active=f_active_new, alive=alive)
+
+    # ---- RLE run iteration (:424-611); runs arrive ordered for the direction
+    if iteration_direction > 0:
+        eb_min = torch.full_like(wb_min, float(world_max_y))
+        eb_max = eb_min
+    else:
+        eb_min = torch.zeros_like(wb_min)
+        eb_max = torch.zeros_like(wb_min)
+    run_done = torch.zeros_like(process)
+    P = rs.raybuf.shape[1]
+    pixf = torch.arange(P, dtype=torch.float32, device=rs.raybuf.device)[None, :]
+
+    for k in range(max_runs):
+        run = runs_k[:, k]
+        length = run & 0xFFFF
+        cidx = run >> 16  # arithmetic: air runs are negative
+        is_air = run < 0
+        k_valid = process & rs.alive & (k < n_runs) & ~run_done
+
+        len_scaled = (length * (1 << lod)).float()
+        if iteration_direction > 0:
+            eb_max_n = eb_min
+            eb_min_n = eb_min - len_scaled
+        else:
+            eb_min_n = eb_max
+            eb_max_n = eb_min_n + len_scaled
+        eb_min = torch.where(k_valid, eb_min_n, eb_min)
+        eb_max = torch.where(k_valid, eb_max_n, eb_max)
+
+        above = eb_min > wb_max
+        below = eb_max < wb_min
+        brk = k_valid & ~is_air & (below if iteration_direction > 0 else above)
+        run_done = run_done | brk
+        draw = k_valid & ~is_air & ~above & ~below
+
+        # lerp the projected full-world lines per run (:477-481)
+        portion_bottom = eb_min / world_max_y  # a real divide, as JAX writes it
+        portion_top = eb_max / world_max_y
+        cs_front_bottom = cs_min_last + (cs_max_last - cs_min_last) \
+            * portion_bottom[:, None]
+        cs_front_top = cs_min_last + (cs_max_last - cs_min_last) \
+            * portion_top[:, None]
+
+        # --- side span (:484-542)
+        u_a0 = length.float()
+        vis, fa, fb_, u_a, u_b = _near_clip_line(
+            cs_front_bottom, cs_front_top, u_a0, torch.zeros_like(u_a0))
+        side = draw & vis
+        uv_a = torch.stack([torch.ones_like(u_a), u_a], dim=1) / fa[:, 2:3]
+        uv_b = torch.stack([torch.ones_like(u_b), u_b], dim=1) / fb_[:, 2:3]
+        rbf_a = fa[:, 0] / fa[:, 2]
+        rbf_b = fb_[:, 0] / fb_[:, 2]
+        flip = rbf_a > rbf_b
+        rbf_lo = torch.where(flip, rbf_b, rbf_a)
+        rbf_hi = torch.where(flip, rbf_a, rbf_b)
+        uv_lo = torch.where(flip[:, None], uv_b, uv_a)
+        uv_hi = torch.where(flip[:, None], uv_a, uv_b)
+        rb_min = to_i32(torch.round(rbf_lo))
+        rb_max = to_i32(torch.round(rbf_hi))
+        overlap = side & (rb_max >= rs.nfp_min) & (rb_min <= rs.nfp_max)
+        rs, rb_min2, rb_max2 = _reduce_pixel_horizon(rs, rb_min, rb_max, overlap)
+        # per-pixel perspective-correct color index (:519-533)
+        l = (pixf - rbf_lo[:, None]) / (rbf_hi - rbf_lo)[:, None]
+        wu0 = uv_lo[:, 0:1] + (uv_hi[:, 0:1] - uv_lo[:, 0:1]) * l
+        wu1 = uv_lo[:, 1:2] + (uv_hi[:, 1:2] - uv_lo[:, 1:2]) * l
+        u = wu1 / wu0
+        iu = torch.where(torch.isnan(u), 0, to_i32(torch.floor(u)))
+        color_local = torch.minimum(torch.clamp(iu, min=0),
+                                    (length - 1)[:, None]) + cidx[:, None]
+        values = color_off[:, None] + color_local
+        rs, killed = _write_span(rs, rb_min2, rb_max2, values, overlap)
+        rs = rs._replace(alive=rs.alive & ~killed)
+
+        # --- top/bottom cap (:544-610)
+        live = draw & rs.alive
+        top_cap = portion_top < cam_y_norm
+        bot_cap = ~top_cap & (portion_bottom > cam_y_norm)
+        skip_top = top_cap & (eb_max > wb_max)
+        skip_bot = bot_cap & (eb_min < wb_min)
+        cap = live & ((top_cap & ~skip_top) | (bot_cap & ~skip_bot))
+        sec_color_idx = torch.where(top_cap, cidx, cidx + length - 1)
+        portion_cap = torch.where(top_cap, portion_top, portion_bottom)
+        cs_sec_a = cs_min_next + (cs_max_next - cs_min_next) * portion_cap[:, None]
+        cs_sec_b = torch.where(top_cap[:, None], cs_front_top, cs_front_bottom)
+        vis2, sa, sb = _near_clip_line(cs_sec_a, cs_sec_b)
+        cap = cap & vis2
+        r2a = torch.round(sa[:, 0] / sa[:, 2])
+        r2b = torch.round(sb[:, 0] / sb[:, 2])
+        rb2_min = to_i32(_min(r2a, r2b))
+        rb2_max = to_i32(_max(r2a, r2b))
+        overlap2 = cap & (rb2_max >= rs.nfp_min) & (rb2_min <= rs.nfp_max)
+        rs, rb2_min2, rb2_max2 = _reduce_pixel_horizon(rs, rb2_min, rb2_max,
+                                                       overlap2)
+        cap_values = (color_off + sec_color_idx)[:, None]
+        rs, killed2 = _write_span(rs, rb2_min2, rb2_max2, cap_values, overlap2)
+        rs = rs._replace(alive=rs.alive & ~killed2)
+    return rs
+
+
+def rasterize_cells(rs: RasterState, cells: CellFields, static: RayStatic,
+                    consts, iteration_direction: int) -> RasterState:
+    """``_rasterize_step`` over a chunk's C cells in visit order."""
+    max_runs = cells.runs.shape[-1]
+    for c in range(cells.lod.shape[0]):
+        rs = _rasterize_step(rs, tuple(f[c] for f in cells), static, consts,
+                             iteration_direction, max_runs)
+    return rs
+
+
+def raster_consts(world_max_y, cam_y, solid_min_y=None, solid_max_y=None,
+                  device=None):
+    """Scalar constants of the rasterizer: f32 0-d tensors on ``device`` for
+    the plain version, and the same f32 values as host floats ("scalars")
+    for the kernel's arguments.
+
+    The tensors live on the rays' device on purpose: torch divides a CUDA
+    tensor by a CPU scalar as a multiply by its reciprocal, which is not the
+    reference's divide."""
+    f = [None if x is None else np.float32(x)
+         for x in (world_max_y, cam_y, solid_min_y, solid_max_y)]
+    wmy, cy, smin, smax = f
+    cy_norm = cy / wmy  # f32 divide, as the reference computes it
+
+    def t(x):
+        return None if x is None else torch.tensor(x, dtype=torch.float32,
+                                                   device=device)
+
+    return {
+        "world_max_y": t(wmy), "cam_y": t(cy), "cam_y_norm": t(cy_norm),
+        "solid_min_y": t(smin), "solid_max_y": t(smax),
+        "scalars": tuple(None if x is None else float(x)
+                         for x in (wmy, cy, cy_norm, smin, smax)),
+    }
+
+
+def init_raster_state(static: RayStatic, pixel_len: int) -> RasterState:
+    R = static.dirs.shape[0]
+    dev = static.dirs.device
+    return RasterState(
+        raybuf=torch.full((R, pixel_len), -1, dtype=torch.int32, device=dev),
+        nfp_min=static.orig_min.clone(),
+        nfp_max=static.orig_max.clone(),
+        fb_min=static.orig_min.float() - 0.501,
+        fb_max=static.orig_max.float() + 0.501,
+        f_active=torch.zeros(R, dtype=torch.bool, device=dev),
+        fdir_min=torch.zeros(R, dtype=torch.float32, device=dev),
+        fdir_max=torch.zeros(R, dtype=torch.float32, device=dev),
+        alive=torch.ones(R, dtype=torch.bool, device=dev))
+
+
+# ------------------------------------------------------------------ march
+
+
+def chunk_cells(wa: WorldArrays, visits, iteration_direction: int) -> CellFields:
+    """The rasterizer's input for one chunk: the visit list's dense fields
+    plus the fetched column records (invalid visits fetch column 0 and are
+    masked by ``valid``)."""
+    v_lod = visits[:, 4]
+    v_valid = visits[:, 5] != 0
+    lodc = v_lod.clamp(0, 7)
+    ci = _cell_index(wa, lodc, visits[:, 0] >> v_lod, visits[:, 1] >> v_lod)
+    ci = torch.where(v_valid, ci, 0)
+    n_runs, color_off, cmin, cmax, runs = _fetch_columns(
+        wa, ci, v_valid, iteration_direction)
+    ids = visits[:, 2:4].permute(0, 2, 1).contiguous().view(torch.float32)
+    # contiguous (C, R) fields: the rasterizer kernel reads them that way
+    return CellFields(ids=ids, lod=v_lod.contiguous(), valid=v_valid,
+                      n_runs=n_runs, color_off=color_off.contiguous(),
+                      cmin=cmin.contiguous(), cmax=cmax.contiguous(),
+                      runs=runs.contiguous())
+
+
+def march(wa: WorldArrays, static: RayStatic, dda: DDAState, alive0,
+          rs: RasterState, lod_distances, far_clip, dims, consts,
+          iteration_direction: int, chunk: int, max_chunks: int,
+          kernels: bool = True) -> RasterState:
+    """Full phase-1 march (``raymarch.py:895``): per chunk, roll, fetch and
+    rasterize, until every ray is dead or ``max_chunks`` ran.  One ``.item()``
+    liveness check per chunk.  ``kernels`` picks the ops wrappers (the CUDA
+    kernels on a CUDA tensor); False runs their plain torch versions."""
+    from cpuvox_tpu_torch.ops import phase1_kernel, roll_kernel
+
+    roll = roll_kernel.roll_chunk if kernels else roll_kernel.roll_chunk_ref
+    raster = (phase1_kernel.rasterize_chunk if kernels
+              else phase1_kernel.rasterize_chunk_ref)
+    alive = alive0
+    i = 0
+    while i < max_chunks:
+        march_alive = alive & rs.alive
+        if not bool(march_alive.any().item()):
+            break
+        dda, alive, visits = roll(dda, march_alive, static.dirs, lod_distances,
+                                  far_clip, dims, chunk)
+        cells = chunk_cells(wa, visits, iteration_direction)
+        rs = raster(rs, cells, static, consts, iteration_direction)
+        i += 1
+    return rs
+
+
+def phase1(wa: WorldArrays, static: RayStatic, dda: DDAState, alive0,
+           lod_distances, far_clip, world_max_y, cam_y,
+           iteration_direction: int, chunk: int, max_chunks: int, dims,
+           pixel_len: int, solid_min_y=None, solid_max_y=None,
+           kernels: bool = True):
+    """Full phase 1 (``raymarch.py:961``): march + deferred skybox fill.
+    Returns the (R, pixel_len) int32 color-index raybuffer."""
+    dev = static.dirs.device
+    rs = init_raster_state(static, pixel_len)
+    consts = raster_consts(world_max_y, cam_y, solid_min_y, solid_max_y, dev)
+    lod_distances = torch.as_tensor(np.asarray(lod_distances, np.float32),
+                                    device=dev)
+    far = float(np.float32(far_clip))  # f32-exact: compares like the f32 scalar
+    rs = march(wa, static, dda, alive0, rs, lod_distances, far, dims, consts,
+               iteration_direction, chunk, max_chunks, kernels=kernels)
+    # deferred WriteSkybox (:699-716): unwritten pixels inside the range -> 0
+    pix = torch.arange(pixel_len, dtype=torch.int32, device=dev)[None, :]
+    in_range = (pix >= static.orig_min[:, None]) & (pix <= static.orig_max[:, None])
+    return torch.where((rs.raybuf < 0) & in_range, 0, rs.raybuf)
+
+
+MAGENTA_I32 = int(np.uint32(0xFFFF1493).view(np.int32))
+
+
+def resolve_colors(raybuf_idx, colors):
+    """Color-index buffer -> ARGB as int32 bits (``raymarch.py:1633``);
+    unwritten (-1) -> debug magenta."""
+    vals = colors[raybuf_idx.clamp(0, colors.shape[0] - 1).long()]
+    return torch.where(raybuf_idx < 0, MAGENTA_I32, vals)
