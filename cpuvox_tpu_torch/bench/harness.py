@@ -19,32 +19,55 @@ import time
 import numpy as np
 import torch
 
+from cpuvox_tpu_torch.bench import path as bench_path
 from cpuvox_tpu_torch.render.raymarch import MAGENTA_I32
-from cpuvox_tpu_torch.shared import bench_path
 
-# bench.py's default scene, as bench.py:165-168 builds it
+# bench.py's scenes, as bench.py:145-168 builds them: its default dense
+# terrain, and its deep, mostly-empty headline scene
 TERRAIN = dict(dims=(2048, 256, 2048), seed=1234, shell_depth=9, lod_levels=6)
+LAYERED = dict(dims=(2048, 512, 2048), seed=99, shell_depth=8, n_layers=13,
+               lod_levels=6, footprint=0.55)
 CACHE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     ".bench_cache")
 
 
-def terrain2048(log=lambda *a: print(*a, file=sys.stderr)):
-    """The terrain2048 LOD chain, cached in .bench_cache/terrain2048.world."""
-    from cpuvox_tpu_torch.shared import procedural, save
+def _cached(name, build, log):
+    """The LOD chain ``build()`` makes, cached in .bench_cache/<name>.world."""
+    from cpuvox_tpu_torch.world import save
 
-    cache = os.path.join(CACHE_DIR, "terrain2048.world")
+    cache = os.path.join(CACHE_DIR, f"{name}.world")
     t0 = time.perf_counter()
     if os.path.exists(cache):
         lods = save.load_world(cache)
         log(f"[world] loaded {cache} in {time.perf_counter() - t0:.1f} s")
         return lods
-    lods = procedural.heightmap_world(**TERRAIN)
-    log(f"[world] built terrain2048 ({lods[0].voxel_count} LOD0 voxels) in "
+    lods = build()
+    log(f"[world] built {name} ({lods[0].voxel_count} LOD0 voxels) in "
         f"{time.perf_counter() - t0:.1f} s (numpy, host)")
     os.makedirs(CACHE_DIR, exist_ok=True)
     save.save_world(cache, lods)
     return lods
+
+
+def terrain2048(log=lambda *a: print(*a, file=sys.stderr)):
+    """The terrain2048 LOD chain (dense: the occupancy gate stays off)."""
+    from cpuvox_tpu_torch.models import procedural
+
+    return _cached("terrain2048",
+                   lambda: procedural.heightmap_world(**TERRAIN), log)
+
+
+def layered2048(log=lambda *a: print(*a, file=sys.stderr)):
+    """The layered2048 LOD chain: deep RLE and most LOD0 columns empty, so
+    the occupancy gate resolves on."""
+    from cpuvox_tpu_torch.models import procedural
+
+    return _cached("layered2048",
+                   lambda: procedural.layered_world(**LAYERED), log)
+
+
+SCENES = {"terrain2048": terrain2048, "layered2048": layered2048}
 
 
 def run_flythrough(renderer, n_frames: int = 24,

@@ -1,11 +1,13 @@
-// Kernel 2: the phase-1 chunk rasterizer, dense branch.
+// Kernel 2: the phase-1 chunk rasterizer.
 //
 // Replaces cpuvox_tpu/ops/phase1_kernel.py::rasterize_chunk (the Pallas
-// kernel that phase1_pallas calls once per chunk).  The plain version is the
+// kernel that phase1_pallas calls once per chunk on the dense march and once
+// per gated group on the occupancy-gated march).  The plain version is the
 // torch cpuvox_tpu_torch.render.raymarch._rasterize_step looped over the
-// chunk's cells (raymarch.rasterize_cells); this kernel is a per-ray
-// transliteration of it and equals it bit for bit in the raybuffer and in
-// all 8 state fields.
+// cells (raymarch.rasterize_cells); this kernel is a per-ray transliteration
+// of it and equals it bit for bit in the raybuffer and in all 8 state
+// fields.  A cell that is not valid (a gated group's tail cell past the
+// ray's gated count) leaves the ray untouched.
 //
 // What bounds it on the H100: memory latency, not arithmetic.  Per visited
 // cell a ray reads its column record (8 + MAXR int32, coalesced across the
@@ -33,6 +35,15 @@
 //    _next_unwritten_geq/_prev_unwritten_leq, cheap for one thread walking
 //    its own row.
 // The raybuffer and state are updated in place.
+//
+// No checkpoint sweep skip (phase1_kernel.py:630-675): the TPU kernel sweeps
+// a column's runs in RB-run blocks shared by 128 lanes, and a lane-consensus
+// checkpoint lets all of them jump past blocks that lie wholly on the far
+// side of every lane's window.  One thread per ray meets such a run in the
+// run loop below and leaves it with the far-side `continue` after one load,
+// a scale and two compares; a per-thread skip loop ahead of the sweep does
+// the same work per run, and timed 9-16 % slower than none on an H100 on
+// layered2048's gated groups (PERF.md), so the kernel has none.
 //
 // Rolled loops: the four texel loops (the two frontier scans and the two span
 // writes) carry `#pragma unroll 1`, against a ptxas miscompile.  ptxas of
@@ -204,9 +215,10 @@ __device__ __forceinline__ void rasterize_cell(
     RayState& s, int* row, const Consts k, float ids0, float ids1, int lod,
     bool valid, int n_runs, int color_off, int cmin, int cmax,
     const int* runs, int maxr, F3 pb, F3 pt, F3 pd) {
+  if (!valid) return;  // not this ray's cell: an exact no-op
   const float wmy = k.world_max_y;
   const int P = k.P;
-  bool alive = s.alive && valid;
+  bool alive = s.alive;
 
   // ---- frustum-vs-column cull (:258-281)
   const float dist_top = s.fdir_max > 0.0f ? ids1 : ids0;

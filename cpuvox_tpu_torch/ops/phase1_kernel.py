@@ -1,21 +1,24 @@
 """Kernel 2: the phase-1 chunk rasterizer (``csrc/rasterize.cu``).
 
-Replaces ``cpuvox_tpu/ops/phase1_kernel.py::rasterize_chunk`` on the dense
-branch.  One CUDA thread per ray walks the chunk's C visited cells in order
-and, per cell, the column's runs (``MAXR`` is a runtime argument): frustum
-cull and solid kill, the writable-frustum re-clip, then per run the side span
-(near clip, perspective-correct u) and the top/bottom cap, writing color
-indices into unwritten texels of the ray's own raybuffer row.  The thread
-runs the EXACT frontier scans of ``_next_unwritten_geq``/``_prev_unwritten_leq``
-over its row, so the kernel equals the plain version (``_rasterize_step``
-over the C cells) bit for bit in the raybuffer and in all 8 state fields.
+Replaces ``cpuvox_tpu/ops/phase1_kernel.py::rasterize_chunk``: a chunk's C
+cells on the dense march, a group of GK gated cells on the gated march.  One
+CUDA thread per ray walks the cells in order and, per cell, the column's
+runs (``MAXR`` is a runtime argument): frustum cull and solid kill, the
+writable-frustum re-clip, then per run the side span (near clip,
+perspective-correct u) and the top/bottom cap, writing color indices into
+unwritten texels of the ray's own raybuffer row.  The thread runs the EXACT
+frontier scans of ``_next_unwritten_geq``/``_prev_unwritten_leq`` over its
+row, so the kernel equals the plain version (``_rasterize_step`` over the
+cells) bit for bit in the raybuffer and in all 8 state fields.
 
 ``rasterize_chunk`` takes the plain version for CPU tensors and launches the
 kernel for CUDA tensors.  The kernel updates the raybuffer and the state in
 place and returns the same ``RasterState``.
 
-Not ported (their callers are off the dense path): the MCC inline-color
-write, the deep-RLE run blocks and the checkpoint sweep skip.
+Not ported (its caller, ARGB mode, is not ported): the MCC inline-color
+write.  The TPU kernel's run blocks and checkpoint sweep skip exist for its
+lane layout; one thread per ray sweeps any MAXR in one loop and passes a
+far-side run as cheaply as a skip would (``csrc/rasterize.cu``).
 """
 from __future__ import annotations
 

@@ -1,14 +1,19 @@
-"""Full-frame render orchestration (``cpuvox_tpu/render/frame.py``), dense
-branch with host ray init.
+"""Full-frame render orchestration (``cpuvox_tpu/render/frame.py``) with host
+ray init.
 
 Per frame: camera + vanishing-point segments on the host (numpy), host ray
-init handed to the device, the phase-1 march (roll -> fetch -> rasterize per
-chunk), phase-2 reprojection in color-index space, the color resolve of the
-screen's pixels, and the nearest upscale of a ``render_scale`` frame.
+init handed to the device, the phase-1 march, phase-2 reprojection in
+color-index space, the color resolve of the screen's pixels, and the nearest
+upscale of a ``render_scale`` frame.  The march is the dense one (roll ->
+fetch -> rasterize per chunk) or, where ``occupancy_on`` resolves true, the
+occupancy-gated one (``raymarch.march_gated``); both give the same raybuffer.
 
 ``RenderConfig.backend`` keeps its meaning from the JAX package: "xla" runs
 the plain torch versions of the kernels (the twin), anything else the
 hand-written CUDA kernels (which take their plain versions on a CPU tensor).
+Unlike the JAX package, the gate does not depend on the backend: the plain
+versions run the gated march too.  The Renderer works on the card unless it
+is asked for another device.
 """
 from __future__ import annotations
 
@@ -18,12 +23,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cpuvox_tpu_torch.shared import RenderConfig
-from cpuvox_tpu_torch.shared import camera as cm
-from cpuvox_tpu_torch.shared import segments as sg
-from cpuvox_tpu_torch.shared import device as shared_device
+from cpuvox_tpu_torch.config import RenderConfig
 
+from . import camera as cm
+from . import device as world_device
 from . import ray_init, raymarch, reproject
+from . import segments as sg
 
 
 class FrameSetup(NamedTuple):
@@ -42,19 +47,26 @@ class FrameSetup(NamedTuple):
 
 
 def _check_supported(config: RenderConfig):
+    """Refuse the JAX package's settings that the port does not carry."""
     if config.argb_records:
         raise NotImplementedError("argb_records=True is not ported yet")
-    if config.occupancy_gate == "on":
+    if config.block_fetch == "on":
+        raise NotImplementedError("block_fetch='on' (the block-conditional "
+                                  "gated fetch) is not ported")
+    if config.lite_records != "off":
         raise NotImplementedError(
-            "the occupancy-gated march is not ported yet (occupancy_gate='on'); "
-            "'auto' and 'off' render through the output-identical dense march")
+            f"lite_records={config.lite_records!r} is not ported")
+    if config.drain_groups:
+        raise NotImplementedError(
+            f"drain_groups={config.drain_groups} is not ported: the gated "
+            "march drains one group per chunk, then rewinds")
 
 
 @dataclasses.dataclass
 class Renderer:
     """Holds the device world; render frames with ``render``."""
 
-    device_world: shared_device.DeviceWorld
+    device_world: world_device.DeviceWorld
     config: RenderConfig
     device: torch.device
     lod_distances: np.ndarray | None = None
@@ -62,9 +74,10 @@ class Renderer:
     _wa: raymarch.WorldArrays | None = None
 
     @classmethod
-    def create(cls, lods, config: RenderConfig = RenderConfig(), device="cpu"):
+    def create(cls, lods, config: RenderConfig = RenderConfig(),
+               device="cuda"):
         _check_supported(config)
-        dw = shared_device.build_device_world(lods, skybox_rgb=config.skybox_rgb)
+        dw = world_device.build_device_world(lods, skybox_rgb=config.skybox_rgb)
         r = cls(device_world=dw, config=config, device=torch.device(device))
         r._wa = raymarch.world_arrays(dw, r.device)  # raises for split layouts
         return r
@@ -93,14 +106,47 @@ class Renderer:
         return (dw.solid_min_y, dw.solid_max_y)
 
     @property
+    def occupancy_on(self) -> bool:
+        """The occupancy-gate policy resolved against the world's content
+        (``frame.py:152-165``): "auto" gates when at least half the LOD0
+        columns are empty."""
+        mode = self.config.occupancy_gate
+        if mode == "on":
+            return True
+        if mode == "off":
+            return False
+        return self.device_world.empty_frac >= 0.5
+
+    @property
     def march_params(self) -> tuple[int, int]:
-        """(chunk_steps, max_march_chunks) with 0 = auto: chunk 32 and a
-        3*max_dim-step march plus 64 chunks of headroom (the dense policy)."""
+        """(chunk_steps, max_march_chunks) with 0 = auto (``frame.py:196``):
+        gated worlds of 512 columns or more march in chunks of 128, the rest
+        in chunks of 32.  The dense march gets a 3*max_dim-step march plus 64
+        chunks; the gated march 3*max_dim + 64 iterations, since each
+        iteration advances a ray by at least one rasterized cell or a whole
+        chunk, so no busy-ray rewind rate can truncate a ray."""
         cfg = self.config
         max_dim = max(self.device_world.dims)
-        chunk = cfg.chunk_steps or 32
-        max_chunks = cfg.max_march_chunks or (3 * max_dim) // chunk + 64
+        chunk = cfg.chunk_steps
+        if chunk == 0:
+            chunk = 128 if (self.occupancy_on and max_dim >= 512) else 32
+        max_chunks = cfg.max_march_chunks
+        if max_chunks == 0:
+            if self.occupancy_on:
+                max_chunks = 3 * max_dim + 64
+            else:
+                max_chunks = (3 * max_dim) // chunk + 64
         return chunk, max_chunks
+
+    @property
+    def gated_group_cells(self) -> int:
+        """Cells rasterized per ray per gated iteration (``raymarch.py:1040``):
+        16 when the chunk is a multiple of 16, else 8, unless configured."""
+        chunk = self.march_params[0]
+        gk = self.config.gated_group_cells or (16 if chunk % 16 == 0 else 8)
+        if gk > chunk:
+            raise ValueError(f"gated group {gk} exceeds the chunk {chunk}")
+        return gk
 
     @property
     def ray_capacity(self) -> int:
@@ -149,7 +195,8 @@ class Renderer:
             f.cam_data.far_clip, dims[1], f.cam_data.position[1],
             iteration_direction=f.iteration_direction, chunk=chunk,
             max_chunks=max_chunks, dims=dims, pixel_len=max(self.render_wh),
-            solid_min_y=smin, solid_max_y=smax, kernels=self.kernels)
+            solid_min_y=smin, solid_max_y=smax, kernels=self.kernels,
+            gated_cells=self.gated_group_cells if self.occupancy_on else 0)
 
     def render_device(self, cam: cm.Camera):
         """Render one frame on the device.  Returns (screen (H, W) int32 ARGB

@@ -12,9 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cpuvox_tpu_torch.shared import camera as cm
-from cpuvox_tpu_torch.shared import segments as sg
-
+from . import camera as cm
+from . import segments as sg
 from .raymarch import DDAState, RayStatic
 
 F = np.float32
@@ -119,9 +118,8 @@ def init_rays_np(cam_data: cm.CameraData, segs: list[sg.SegmentData],
 
 
 def init_rays(cam_data: cm.CameraData, segs: list[sg.SegmentData],
-              ctxs: list[sg.SegmentContext], dims: tuple[int, int, int],
-              pad_to: int = 128, fixed_size: int | None = None,
-              device="cpu"):
+              ctxs: list[sg.SegmentContext], dims: tuple[int, int, int], *,
+              device, pad_to: int = 128, fixed_size: int | None = None):
     """``init_rays_np`` as tensors on ``device``:
     (RayStatic, DDAState, alive0 (R,) bool, meta)."""
     static, dda, alive, meta = init_rays_np(cam_data, segs, ctxs, dims,

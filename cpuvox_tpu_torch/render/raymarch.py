@@ -22,6 +22,11 @@ Where torch and XLA differ on the same expression, the port follows XLA:
   different bit pattern);
 - nothing uses ``torch.lerp``/``addcmul``: each ``a + (b - a) * t`` is written
   out so every product and sum is rounded on its own.
+
+Two marches share the roll and the rasterizer: the dense one (``march``)
+fetches and rasterizes every visited cell; the occupancy-gated one
+(``march_gated``, ``raymarch.py:1228-1580``) first reads one occupancy-tile
+row per tile a ray crosses and rasterizes only the cells that may draw.
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from cpuvox_tpu_torch.shared import device as shared_device
+from cpuvox_tpu_torch.render import device as world_device
 
 BIG = 1 << 24
 I32_MIN = -(1 << 31)
@@ -71,7 +76,7 @@ class RasterState(NamedTuple):
 
 
 class WorldArrays(NamedTuple):
-    """The device world for the dense branch: inline column records only."""
+    """The device world: inline column records and the occupancy tiles."""
 
     col_base: torch.Tensor  # (8,) i32 first column of each LOD
     grid_z: torch.Tensor  # (8,) i32 columns per x-row of each LOD
@@ -79,6 +84,9 @@ class WorldArrays(NamedTuple):
     rec_rev: torch.Tensor  # the same with each column's runs reversed
     colors: torch.Tensor  # (n_colors,) i32 view of uint32 ARGB, [0] = skybox
     max_runs: int
+    occ_tiles: torch.Tensor  # (n_tiles, 8) i32 [4 bitmap words, cmin, cmax, pad]
+    tile_base: torch.Tensor  # (8,) i32 first tile row of each LOD
+    tile_gz: torch.Tensor  # (8,) i32 tiles per x-row of each LOD
 
 
 class CellFields(NamedTuple):
@@ -123,16 +131,14 @@ def _max(a, b):
 
 
 def world_arrays(dw, device) -> WorldArrays:
-    """The shared numpy ``DeviceWorld`` as the port's tensors (counterpart of
+    """The numpy ``DeviceWorld`` as the port's tensors (counterpart of
     ``cpuvox_tpu/render/raymarch.py:238``).  Colors stay int32 inside torch
     (uint32 arithmetic in torch is thin); they are viewed back as uint32 at
     the numpy boundary."""
-    if dw.max_col_colors:
-        raise NotImplementedError("ARGB records (inline colors) are not ported")
     if dw.rec_fwd is None:
         raise NotImplementedError(
             f"split record layout (max_runs {dw.max_runs} > "
-            f"{shared_device.INLINE_MAX_RUNS}) is not ported")
+            f"{world_device.INLINE_MAX_RUNS}) is not ported")
 
     def put(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
@@ -140,13 +146,21 @@ def world_arrays(dw, device) -> WorldArrays:
     return WorldArrays(
         col_base=put(dw.col_base), grid_z=put(dw.grid_z),
         rec_fwd=put(dw.rec_fwd), rec_rev=put(dw.rec_rev),
-        colors=put(dw.colors.view(np.int32)), max_runs=int(dw.max_runs))
+        colors=put(dw.colors.view(np.int32)), max_runs=int(dw.max_runs),
+        occ_tiles=put(dw.occ_tiles), tile_base=put(dw.tile_base),
+        tile_gz=put(dw.tile_gz))
 
 
 def _cell_index(wa: WorldArrays, lodc, xc, zc):
     """Column index of visited cells: col_base[lod] + xc * grid_z[lod] + zc
     (``raymarch.py:100`` without the world-shard window)."""
     return wa.col_base[lodc] + xc * wa.grid_z[lodc] + zc
+
+
+def _occ_tile_index(wa: WorldArrays, lodc, xc, zc):
+    """Occupancy-tile row of visited cells, 16x8 column tiles
+    (``raymarch.py:125`` without the world-shard window)."""
+    return wa.tile_base[lodc] + (xc >> 4) * wa.tile_gz[lodc] + (zc >> 3)
 
 
 def _fetch_columns(wa: WorldArrays, ci, v_valid, iteration_direction: int):
@@ -166,8 +180,8 @@ def _fetch_columns(wa: WorldArrays, ci, v_valid, iteration_direction: int):
     color_off = rec[..., 1]
     cmin = rec[..., 2]
     cmax = rec[..., 3]
-    meta = shared_device.REC_META
-    rwords = shared_device.packed_run_words(max_runs)
+    meta = world_device.REC_META
+    rwords = world_device.packed_run_words(max_runs)
     if rwords == max_runs:
         return n_runs, color_off, cmin, cmax, rec[..., meta:meta + rwords]
     words = rec[..., meta:meta + rwords]
@@ -371,7 +385,14 @@ def _rasterize_step(rs: RasterState, cell, static: RayStatic, consts,
                     iteration_direction: int, max_runs: int) -> RasterState:
     """Process one visited cell for every ray (the body of ExecuteRay:245-611;
     ``raymarch.py:661``).  ``cell`` = (ids (R, 2), lod, valid, n_runs,
-    color_off, cmin, cmax, runs (R, max_runs))."""
+    color_off, cmin, cmax, runs (R, max_runs)).
+
+    A cell whose ``valid`` is False leaves the ray's state exactly as it was,
+    as in the Pallas kernel (``phase1_kernel.py:203``): the gated march hands
+    the rasterizer groups whose tail cells are not the ray's.  (The XLA twin
+    clears ``alive`` there instead; a ray reaches an invalid visit on the
+    dense march only once the roll has retired it, so the raybuffer is the
+    same either way.)"""
     ids, lod, valid, n_runs, color_off, cmin, cmax, runs_k = cell
     world_max_y = consts["world_max_y"]
     cam_y = consts["cam_y"]
@@ -477,7 +498,8 @@ def _rasterize_step(rs: RasterState, cell, static: RayStatic, consts,
 
     rs = rs._replace(nfp_min=nfp_min2, nfp_max=nfp_max2,
                      fdir_min=fdir_min_st, fdir_max=fdir_max_st,
-                     f_active=f_active_new, alive=alive)
+                     f_active=f_active_new,
+                     alive=torch.where(valid, alive, rs.alive))
 
     # ---- RLE run iteration (:424-611); runs arrive ordered for the direction
     if iteration_direction > 0:
@@ -589,9 +611,9 @@ def rasterize_cells(rs: RasterState, cells: CellFields, static: RayStatic,
 
 def raster_consts(world_max_y, cam_y, solid_min_y=None, solid_max_y=None,
                   device=None):
-    """Scalar constants of the rasterizer: f32 0-d tensors on ``device`` for
-    the plain version, and the same f32 values as host floats ("scalars")
-    for the kernel's arguments.
+    """Scalar constants of the rasterizer and the gate: f32 0-d tensors on
+    ``device`` for the plain version, and the same f32 values as host floats
+    ("scalars") for the kernel's arguments.
 
     The tensors live on the rays' device on purpose: torch divides a CUDA
     tensor by a CPU scalar as a multiply by its reciprocal, which is not the
@@ -608,6 +630,7 @@ def raster_consts(world_max_y, cam_y, solid_min_y=None, solid_max_y=None,
     return {
         "world_max_y": t(wmy), "cam_y": t(cy), "cam_y_norm": t(cy_norm),
         "solid_min_y": t(smin), "solid_max_y": t(smax),
+        "gate_eps": t(np.float32(1e-5)),  # the gate's relative margin
         "scalars": tuple(None if x is None else float(x)
                          for x in (wmy, cy, cy_norm, smin, smax)),
     }
@@ -650,19 +673,24 @@ def chunk_cells(wa: WorldArrays, visits, iteration_direction: int) -> CellFields
                       runs=runs.contiguous())
 
 
+def march_ops(kernels: bool):
+    """(roll, raster): the ops wrappers (the CUDA kernels on a CUDA tensor),
+    or with ``kernels`` False their plain torch versions."""
+    from cpuvox_tpu_torch.ops import phase1_kernel, roll_kernel
+
+    if kernels:
+        return roll_kernel.roll_chunk, phase1_kernel.rasterize_chunk
+    return roll_kernel.roll_chunk_ref, phase1_kernel.rasterize_chunk_ref
+
+
 def march(wa: WorldArrays, static: RayStatic, dda: DDAState, alive0,
           rs: RasterState, lod_distances, far_clip, dims, consts,
           iteration_direction: int, chunk: int, max_chunks: int,
           kernels: bool = True) -> RasterState:
-    """Full phase-1 march (``raymarch.py:895``): per chunk, roll, fetch and
-    rasterize, until every ray is dead or ``max_chunks`` ran.  One ``.item()``
-    liveness check per chunk.  ``kernels`` picks the ops wrappers (the CUDA
-    kernels on a CUDA tensor); False runs their plain torch versions."""
-    from cpuvox_tpu_torch.ops import phase1_kernel, roll_kernel
-
-    roll = roll_kernel.roll_chunk if kernels else roll_kernel.roll_chunk_ref
-    raster = (phase1_kernel.rasterize_chunk if kernels
-              else phase1_kernel.rasterize_chunk_ref)
+    """Full dense phase-1 march (``raymarch.py:895``): per chunk, roll, fetch
+    and rasterize, until every ray is dead or ``max_chunks`` ran.  One
+    ``.item()`` liveness check per chunk."""
+    roll, raster = march_ops(kernels)
     alive = alive0
     i = 0
     while i < max_chunks:
@@ -677,21 +705,214 @@ def march(wa: WorldArrays, static: RayStatic, dda: DDAState, alive0,
     return rs
 
 
+# gated iterations run and rays rewound by march_gated since the last reset
+gated_stats = {"iterations": 0, "rewinds": 0}
+
+
+def _pack_rank(mask, K: int):
+    """(rank, dest) for a (C, R) mask: each True entry's rank among the ray's
+    True entries along the steps, and the row it packs to: its rank while
+    that is below K, else the discarded row K.  The cumsum keeps per-ray step
+    order, so a scatter to ``dest`` is the reference's sort by step index."""
+    rank = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
+    return rank, torch.where(mask & (rank < K), rank, K).long()
+
+
+def _scatter_rows(dest, K: int, x):
+    """Entries of ``x`` (C, R[, F]) scattered along the steps to ``dest``
+    (C, R): (K, R[, F]); slots no entry packs to hold 0."""
+    idx = dest if x.dim() == 2 else dest[..., None].expand_as(x)
+    buf = torch.zeros((K + 1,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    return buf.scatter_(0, idx, x)[:K]
+
+
+class GatedGroup(NamedTuple):
+    """One gated iteration's group and what its rewind reads."""
+
+    cells: CellFields  # (GK, R) fields of each ray's first GK gated cells
+    gate: torch.Tensor  # (C, R) bool: steps that reach the rasterizer
+    rank: torch.Tensor  # (C, R) i32: a gated step's rank among the ray's
+    count: torch.Tensor  # (R,) i32: gated steps per ray
+    cap: torch.Tensor  # (R,) i32: gated steps in the group, min(count, GK)
+
+
+def gated_group(wa: WorldArrays, visits, rs: RasterState, consts,
+                iteration_direction: int, group_cells: int):
+    """Stages A and B of a gated iteration (``raymarch.py:1228-1333``): gate
+    a rolled chunk's cells on the occupancy tiles and the frozen frustum
+    window, retire rays whose window cleared the solid bounds, and pack the
+    first ``group_cells`` gated cells of each ray.  Returns (rs with the
+    pre-kill applied, GatedGroup)."""
+    C, R = visits.shape[0], visits.shape[2]
+    GK = group_cells
+    dev = visits.device
+    v_lod = visits[:, 4]
+    v_valid = visits[:, 5] != 0
+    ids0 = visits[:, 2].view(torch.float32)
+    ids1 = visits[:, 3].view(torch.float32)
+    lodc = v_lod.clamp(0, 7)
+    xc = visits[:, 0] >> v_lod
+    zc = visits[:, 1] >> v_lod
+
+    # ---- stage A: one tile row per distinct tile a ray crosses this chunk,
+    # packed to a budget of TS slots; steps past the budget count as "fetch"
+    TS = C // 8 + 4
+    ti = _occ_tile_index(wa, lodc, xc, zc)
+    new = torch.ones_like(v_valid)
+    new[1:] = ti[1:] != ti[:-1]
+    slot, dest_a = _pack_rank(new, TS)
+    packed_ti = _scatter_rows(dest_a, TS, ti)
+    n_tiles = wa.occ_tiles.shape[0]
+    rows = wa.occ_tiles.index_select(
+        0, packed_ti.clamp(0, n_tiles - 1).reshape(-1).long())
+    rows = rows.reshape(TS, R, -1).permute(0, 2, 1).reshape(-1, R)
+    # per step: its slot's bitmap word, tile cmin and tile cmax (the reference
+    # selects them with a TS x 4-way where chain; the values are integers, so
+    # one gather gives the same)
+    base = slot.clamp(max=TS - 1) * world_device.OCC_ROW
+    w_idx = (xc & 15) >> 2
+    picked = torch.gather(rows, 0, torch.cat(
+        [base + w_idx, base + 4, base + 5]).long()).reshape(3, C, R)
+    wv, tcmin, tcmax = picked[0], picked[1], picked[2]
+    bit_pos = ((xc & 3) << 3) | (zc & 7)
+    bit = (wv >> bit_pos) & 1  # only bit 0 is read, so `>>` may be arithmetic
+    overflow = slot >= TS
+    bitish = (bit != 0) | overflow
+
+    # ---- the conservative frustum-window gate with taint: while a ray's
+    # narrowing is active and no earlier step of the chunk might have changed
+    # it, the rasterizer's window is the frozen-fdir one, so a tile whose
+    # [cmin, cmax] misses it (with a margin) is a provable skip_col
+    cam_y, wmy = consts["cam_y"], consts["world_max_y"]
+    fdmin = rs.fdir_min[None, :]
+    fdmax = rs.fdir_max[None, :]
+    fact0 = rs.f_active[None, :]
+    dt = torch.where(fdmax > 0, ids1, ids0)
+    db = torch.where(fdmin < 0, ids1, ids0)
+    new_max = cam_y + fdmax * dt
+    new_min = cam_y + fdmin * db
+    margin = consts["gate_eps"] * (new_max.abs() + new_min.abs() + 1.0)
+    cull_might = (new_min + margin > wmy) | (new_max - margin < 0.0)
+    excl = (fact0 & ~cull_might & ~overflow
+            & ((tcmin.float() > new_max + margin)
+               | (tcmax.float() < new_min - margin)))
+    trigger = (v_valid & bitish & ~excl).to(torch.int32)
+    taint_before = (torch.cumsum(trigger, 0) - trigger) > 0
+    gate = v_valid & bitish & (taint_before | ~excl)
+
+    if consts["solid_max_y"] is not None:
+        # solid-bound pre-kill: on an untainted step the frozen window is
+        # exact, so a monotone window past the solid Y bounds retires the ray
+        # before the fetch; cells from the killing step on are skip_cols
+        kill_pre = (fact0 & v_valid & ~taint_before
+                    & (((fdmin >= 0.0)
+                        & (new_min - margin > consts["solid_max_y"]))
+                       | ((fdmax <= 0.0)
+                          & (new_max + margin < consts["solid_min_y"]))))
+        kill_from = torch.cumsum(kill_pre.to(torch.int32), 0) > 0
+        gate = gate & ~kill_from
+        rs = rs._replace(alive=rs.alive & ~kill_from[-1])
+
+    # ---- stage B: pack the gated steps to a per-ray prefix, in step order;
+    # the group's tail cells of rays with fewer than GK gated cells are not
+    # valid, which the rasterizer treats as no-ops
+    rank, dest_b = _pack_rank(gate, GK)
+    ci = _cell_index(wa, lodc, xc, zc)
+    packed = _scatter_rows(dest_b, GK, torch.stack(
+        [ci, visits[:, 2], visits[:, 3], v_lod], -1))  # (GK, R, 4)
+    count = rank[-1] + 1
+    cap = count.clamp(max=GK)
+    proc = torch.arange(GK, dtype=torch.int32, device=dev)[:, None] < cap
+    n_runs, color_off, cmin, cmax, runs = _fetch_columns(
+        wa, packed[..., 0], proc, iteration_direction)
+    cells = CellFields(
+        ids=packed[..., 1:3].contiguous().view(torch.float32),
+        lod=packed[..., 3].contiguous(), valid=proc, n_runs=n_runs,
+        color_off=color_off.contiguous(), cmin=cmin.contiguous(),
+        cmax=cmax.contiguous(), runs=runs.contiguous())
+    return rs, GatedGroup(cells, gate, rank, count, cap)
+
+
+def rewind(dda: DDAState, visits, rs: RasterState, g: GatedGroup):
+    """The busy-ray rewind (``raymarch.py:1547-1579``): a live ray with more
+    gated cells than its group held gets the pre-switch snapshot of its first
+    unprocessed gated cell, so the next iteration re-rolls from exactly there
+    (same DDA state, same float trajectory).  Returns (dda, rewound (R,))."""
+    rwm = g.gate & (g.rank == g.cap)
+    needs = (g.count > g.cap) & rs.alive
+
+    def rsum(f):  # exact: one nonzero summand per busy ray, as the reference
+        return torch.where(rwm, f, torch.zeros_like(f)).sum(0, dtype=f.dtype)
+
+    pre = visits[:, 6:13]
+    lod_rw = rsum(pre[:, 6])
+    f32 = [rsum(pre[:, k].view(torch.float32)) for k in range(2, 6)]
+    dda_rw = DDAState(
+        pos=torch.stack([rsum(pre[:, 0]), rsum(pre[:, 1])], 1),
+        tmax=torch.stack(f32[0:2], 1),
+        # tdelta and stp scale by exact powers of two per LOD
+        tdelta=torch.ldexp(dda.tdelta, (lod_rw - dda.lod)[:, None]),
+        stp=torch.sign(dda.stp) * (1 << lod_rw)[:, None],
+        ids=torch.stack(f32[2:4], 1), lod=lod_rw)
+    return _select(needs, dda_rw, dda), needs
+
+
+def march_gated(wa: WorldArrays, static: RayStatic, dda: DDAState, alive0,
+                rs: RasterState, lod_distances, far_clip, dims, consts,
+                iteration_direction: int, chunk: int, max_chunks: int,
+                group_cells: int, kernels: bool = True) -> RasterState:
+    """Full occupancy-gated phase-1 march (``phase1_pallas`` with
+    ``occupancy=True``, one drain group, no block fetch, no lite records):
+    per iteration roll ``chunk`` steps, rasterize the first ``group_cells``
+    gated cells of each ray (``gated_group``) and rewind the rays that had
+    more (``rewind``), until every ray is dead or ``max_chunks`` iterations
+    ran.  Every iteration advances a ray by at least one rasterized cell or
+    ``chunk`` steps, so a budget of 3 * max_dim + 64 never truncates one
+    (``Renderer.march_params``).  Its raybuffer equals ``march``'s."""
+    roll, raster = march_ops(kernels)
+    alive = alive0
+    rewound = torch.zeros((), dtype=torch.int64, device=alive.device)
+    i = 0
+    while i < max_chunks:
+        march_alive = alive & rs.alive
+        if not bool(march_alive.any().item()):
+            break
+        dda, alive, visits = roll(dda, march_alive, static.dirs,
+                                  lod_distances, far_clip, dims, chunk)
+        rs, g = gated_group(wa, visits, rs, consts, iteration_direction,
+                            group_cells)
+        rs = raster(rs, g.cells, static, consts, iteration_direction)
+        dda, needs = rewind(dda, visits, rs, g)
+        alive = alive | needs
+        rewound += needs.sum()
+        i += 1
+    gated_stats["iterations"] += i
+    gated_stats["rewinds"] += int(rewound.item())
+    return rs
+
+
 def phase1(wa: WorldArrays, static: RayStatic, dda: DDAState, alive0,
            lod_distances, far_clip, world_max_y, cam_y,
            iteration_direction: int, chunk: int, max_chunks: int, dims,
            pixel_len: int, solid_min_y=None, solid_max_y=None,
-           kernels: bool = True):
-    """Full phase 1 (``raymarch.py:961``): march + deferred skybox fill.
-    Returns the (R, pixel_len) int32 color-index raybuffer."""
+           kernels: bool = True, gated_cells: int = 0):
+    """Full phase 1 (``raymarch.py:961`` and ``:997``): the dense march, or
+    with ``gated_cells`` > 0 the occupancy-gated march in groups of that many
+    cells, then the deferred skybox fill.  Returns the (R, pixel_len) int32
+    color-index raybuffer."""
     dev = static.dirs.device
     rs = init_raster_state(static, pixel_len)
     consts = raster_consts(world_max_y, cam_y, solid_min_y, solid_max_y, dev)
     lod_distances = torch.as_tensor(np.asarray(lod_distances, np.float32),
                                     device=dev)
     far = float(np.float32(far_clip))  # f32-exact: compares like the f32 scalar
-    rs = march(wa, static, dda, alive0, rs, lod_distances, far, dims, consts,
-               iteration_direction, chunk, max_chunks, kernels=kernels)
+    args = (wa, static, dda, alive0, rs, lod_distances, far, dims, consts,
+            iteration_direction, chunk, max_chunks)
+    if gated_cells:
+        rs = march_gated(*args, group_cells=gated_cells, kernels=kernels)
+    else:
+        rs = march(*args, kernels=kernels)
     # deferred WriteSkybox (:699-716): unwritten pixels inside the range -> 0
     pix = torch.arange(pixel_len, dtype=torch.int32, device=dev)[None, :]
     in_range = (pix >= static.orig_min[:, None]) & (pix <= static.orig_max[:, None])

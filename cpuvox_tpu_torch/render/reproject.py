@@ -12,8 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cpuvox_tpu_torch.shared import segments as sg
-
+from . import segments as sg
 from .raymarch import to_i32
 
 F = np.float32
@@ -43,7 +42,7 @@ def reproject_tables(segs: list[sg.SegmentData], ctxs: list[sg.SegmentContext],
                 ray_base=ray_base, active=active)
 
 
-def segment_ray_index(tables, width: int, height: int, device="cpu"):
+def segment_ray_index(tables, width: int, height: int, device):
     """Per-pixel (segment id, global ray index), both (H, W) int32
     (``reproject.py:48``).  The per-segment scalars are f32, and the float
     operations run in the reference's order."""

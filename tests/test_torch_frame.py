@@ -1,8 +1,10 @@
 """The port's Renderer against the JAX Renderer (backend "xla") and against
-the golden fixtures; bit-exact screens and raybuffers.  Also: the port never
-imports jax, and it refuses the settings the dense slice does not carry.
-JAX is imported inside the tests that compare with it, so the ``cuda`` tests
-also run on the card's machine, which has no jax."""
+the golden fixtures; bit-exact screens and raybuffers.  Worlds whose LOD0 is
+mostly empty (the random world) take the port's occupancy-gated march on the
+default gate, the others its dense march.  Also: the port imports neither
+jax nor the JAX package, and it refuses the settings it does not carry.  JAX
+is imported inside the tests that compare with it, so the ``cuda`` tests also
+run on the card's machine, which has no jax."""
 import os
 import subprocess
 import sys
@@ -12,13 +14,17 @@ import pytest
 import torch
 
 import scenes
-from cpuvox_tpu.config import RenderConfig
 from cpuvox_tpu.models.procedural import heightmap_world
 from cpuvox_tpu.render import camera as cm
 from cpuvox_tpu.world import rle
+from cpuvox_tpu_torch.config import RenderConfig
 from cpuvox_tpu_torch.render.frame import Renderer
 
 from make_golden import CASES as GOLDEN_CASES, GOLDEN_DIR, build
+
+# the tests' tensors are tiny: more threads only contend with the other
+# test workers
+torch.set_num_threads(1)
 
 SCREEN = (64, 48)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -31,11 +37,13 @@ def cuda():
     return torch.device("cuda")
 
 
+BASE = dict(width=SCREEN[0], height=SCREEN[1], chunk_steps=8,
+            max_march_chunks=64)
+
+
 def config(**kw):
-    base = dict(width=SCREEN[0], height=SCREEN[1], chunk_steps=8,
-                max_march_chunks=64)
-    base.update(kw)
-    return RenderConfig(**base)
+    """The port's RenderConfig for the tests' frames."""
+    return RenderConfig(**{**BASE, **kw})
 
 
 def lods_for(scene):
@@ -70,9 +78,11 @@ def jax_reference(lods, cam, **kw):
     """The JAX Renderer on its XLA twin with host ray init: the init the port
     runs, so both start from the same bits (the device init is held equal to
     it by the JAX package's own tests)."""
+    from cpuvox_tpu.config import RenderConfig as JaxRenderConfig
     from cpuvox_tpu.render.frame import Renderer as JaxRenderer
 
-    cfg = config(backend="xla", host_init=True, **kw)
+    cfg = JaxRenderConfig(**{**BASE, "backend": "xla", "host_init": True,
+                             **kw})
     return JaxRenderer.create(lods, cfg).render(cam, return_raybuffers=True)
 
 
@@ -94,7 +104,8 @@ def test_renderer_matches_jax_xla(name, scene, pos, pitch, yaw, roll):
     cam = cm.Camera(position=pos, pitch_deg=pitch, yaw_deg=yaw, roll_deg=roll,
                     screen=SCREEN)
     want = jax_reference(lods, cam)
-    got = Renderer.create(lods, config()).render(cam, return_raybuffers=True)
+    got = Renderer.create(lods, config(), device="cpu").render(
+        cam, return_raybuffers=True)
     assert_frames_equal(name, got, want)
 
 
@@ -103,7 +114,8 @@ def test_render_scale_upscale_matches_jax():
     cam = cm.Camera(position=(8, 10, 8), pitch_deg=25.0, yaw_deg=70.0,
                     screen=SCREEN)
     want, _ = jax_reference(lods, cam, render_scale=0.5)
-    got = Renderer.create(lods, config(render_scale=0.5)).render(cam)
+    got = Renderer.create(lods, config(render_scale=0.5),
+                          device="cpu").render(cam)
     assert got.shape == (SCREEN[1], SCREEN[0])
     np.testing.assert_array_equal(got, want)
 
@@ -111,7 +123,7 @@ def test_render_scale_upscale_matches_jax():
 @pytest.mark.parametrize("name,scene,pos,pitch,yaw,roll", GOLDEN_CASES)
 def test_renderer_matches_golden(name, scene, pos, pitch, yaw, roll):
     g = np.load(os.path.join(GOLDEN_DIR, f"{name}.npz"))
-    r = Renderer.create([build(scene)] * 6, config())
+    r = Renderer.create([build(scene)] * 6, config(), device="cpu")
     cam = cm.Camera(position=pos, pitch_deg=pitch, yaw_deg=yaw, roll_deg=roll,
                     screen=SCREEN)
     screen, (td, lr, *_rest) = r.render(cam, return_raybuffers=True)
@@ -121,6 +133,8 @@ def test_renderer_matches_golden(name, scene, pos, pitch, yaw, roll):
 
 
 def test_port_never_imports_jax():
+    """Importing every module of the port and chip_smoke loads neither jax
+    nor any module of the JAX package ``cpuvox_tpu``."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import cpuvox_tpu_torch\n"
@@ -128,9 +142,13 @@ def test_port_never_imports_jax():
         " 'cpuvox_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import cpuvox_tpu_torch.render.frame, cpuvox_tpu_torch.bench.harness\n"
+        "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or"
         " k.startswith('jax.') or k.startswith('jaxlib'))\n"
         "assert not bad, bad\n"
+        "ref = sorted(k for k in sys.modules if k == 'cpuvox_tpu' or"
+        " k.startswith('cpuvox_tpu.'))\n"
+        "assert not ref, ref\n"
         "print('ok', len([k for k in sys.modules"
         " if k.startswith('cpuvox_tpu_torch')]))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -140,10 +158,12 @@ def test_port_never_imports_jax():
 
 
 @pytest.mark.parametrize("kw", [{"argb_records": True},
-                                {"occupancy_gate": "on"}])
+                                {"block_fetch": "on"},
+                                {"lite_records": "auto"},
+                                {"drain_groups": 4}])
 def test_unported_settings_raise(kw):
     with pytest.raises(NotImplementedError):
-        Renderer.create(lods_for("random"), config(**kw))
+        Renderer.create(lods_for("random"), config(**kw), device="cpu")
 
 
 def test_split_record_layout_raises():
@@ -154,14 +174,15 @@ def test_split_record_layout_raises():
     rgb = tuple(np.full(xz.shape[0], v, np.uint8) for v in (200, 90, 30))
     w = rle.build_lod_from_voxels(dims, 0, xz, ys, rgb)
     with pytest.raises(NotImplementedError):
-        Renderer.create([w] * 6, config())
+        Renderer.create([w] * 6, config(), device="cpu")
 
 
 def test_flythrough_refuses_cpu():
     from cpuvox_tpu_torch.bench.harness import run_flythrough
 
     with pytest.raises(RuntimeError):
-        run_flythrough(Renderer.create(lods_for("floor"), config()), n_frames=2)
+        run_flythrough(Renderer.create(lods_for("floor"), config(),
+                                       device="cpu"), n_frames=2)
 
 
 @pytest.mark.cuda
@@ -174,7 +195,8 @@ def test_renderer_on_cuda_matches_cpu(cuda, name, scene, pos, pitch, yaw,
     lods = lods_for(scene)
     cam = cm.Camera(position=pos, pitch_deg=pitch, yaw_deg=yaw, roll_deg=roll,
                     screen=SCREEN)
-    want = Renderer.create(lods, config()).render(cam, return_raybuffers=True)
+    want = Renderer.create(lods, config(), device="cpu").render(
+        cam, return_raybuffers=True)
     counts = (roll_kernel.launches, phase1_kernel.launches,
               reproject_kernel.launches)
     got = Renderer.create(lods, config(), device=cuda).render(

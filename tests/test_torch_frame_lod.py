@@ -26,7 +26,7 @@ def test_renderer_matches_jax_xla_with_lods(name, scene, pos, pitch, yaw,
     cam = cm.Camera(position=pos, pitch_deg=pitch, yaw_deg=yaw, roll_deg=roll,
                     screen=SCREEN)
     want = jax_reference(lods, cam)
-    r = Renderer.create(lods, config())
+    r = Renderer.create(lods, config(), device="cpu")
     got = r.render(cam, return_raybuffers=True)
     assert_frames_equal(name, got, want)
     # the camera's LOD distances make rays switch LODs inside the world

@@ -20,6 +20,10 @@ from cpuvox_tpu_torch.ops import phase1_kernel
 from cpuvox_tpu_torch.render import ray_init
 from cpuvox_tpu_torch.render import raymarch as trm
 
+# the tests' tensors are tiny: more threads only contend with the other
+# test workers
+torch.set_num_threads(1)
+
 SCREEN = (64, 48)
 R = 384  # 3 * (64 + 48) rays, padded to 128
 CHUNK = 8

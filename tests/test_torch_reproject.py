@@ -11,6 +11,10 @@ from cpuvox_tpu.render import camera as cm
 from cpuvox_tpu_torch.ops import reproject_kernel as trk
 from cpuvox_tpu_torch.render import reproject as trp
 
+# the tests' tensors are tiny: more threads only contend with the other
+# test workers
+torch.set_num_threads(1)
+
 
 @pytest.fixture
 def cuda():
@@ -78,7 +82,7 @@ def test_segment_ray_index_matches_jax(name, pos, pitch, yaw, roll, screen):
     w, h = screen
     js, jr = jrp.segment_ray_index(*(jnp.asarray(tables[k]) for k in (
         "tri_a", "tri_b", "tri_c", "ray_count", "ray_base", "active")), w, h)
-    ts, tr = trp.segment_ray_index(tables, w, h)
+    ts, tr = trp.segment_ray_index(tables, w, h, "cpu")
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js), err_msg=name)
     np.testing.assert_array_equal(tr.numpy(), np.asarray(jr), err_msg=name)
 

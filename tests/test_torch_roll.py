@@ -13,6 +13,10 @@ import torch
 from cpuvox_tpu_torch.ops import roll_kernel
 from cpuvox_tpu_torch.render import raymarch as trm
 
+# the tests' tensors are tiny: more threads only contend with the other
+# test workers
+torch.set_num_threads(1)
+
 DIMS = (64, 16, 64)
 LOD_DIST = np.array([2., 5., 9., 14., 20., 27.], np.float32)
 FAR = np.float32(40.0)
