@@ -2,29 +2,40 @@
 
     python -m cpuvox_tpu_torch.bench.breakdown [--scene terrain2048|layered2048]
         [--gate auto|on|off] [--frames 24] [--width 1920 --height 1080]
+        [--argb] [--device-init] [--compact]
 
 ``--gate`` sets ``RenderConfig.occupancy_gate``, so that the same frames can
-be timed through the occupancy-gated and the dense march.  Four passes over
-the same frames of the benchmark path, on one card:
+be timed through the occupancy-gated and the dense march; ``--argb`` sets
+``argb_records`` (kernel 2 writes the inline colors, phase 2 skips the
+resolve), ``--device-init`` builds the rays on the device
+(``host_init=False``), and ``--compact`` marches on a live-ray index
+(``Renderer.create(compact=True)``) where the default marches every ray slot
+to the end.  Five passes over the same frames of the benchmark
+path, on one card:
 
-1. stages, host clock with a ``torch.cuda.synchronize()`` after each: host
-   setup (camera, segments, reprojection tables, host ray init and its copy
-   to the card), the phase-1 march (chunks or gated iterations counted by
-   the rasterize kernel's launch counter, and on the gated march the rays
-   rewound) and phase 2 (reproject, resolve, upscale);
+1. stages, host clock with a ``torch.cuda.synchronize()`` after each: setup
+   (camera, segments, reprojection tables, ray init on the device or on the
+   host with its copy to the card), the phase-1 march (chunks or gated
+   iterations counted by the rasterize kernel's launch counter, the rays
+   rewound on the gated march, index rebuilds and mean ray slots a chunk)
+   and phase 2 (reproject, resolve, upscale);
 2. whole frames unprofiled, host clock: the wall time of the pass;
-3. the same frames under ``torch.profiler``: every device activity (kernels,
+3. whole frames with and without live-ray compaction in turns (the order
+   swaps every frame), host clock, before the profiler is ever on: each
+   side's frame p50 and the pairs the compacted march wins;
+4. the same frames under ``torch.profiler``: every device activity (kernels,
    copies, fills) with its interval on the card.  The device's busy time is
    the union of those intervals; the busy share is that over pass 2's wall
    (the profiler slows the host, so its own wall is printed but not used);
-4. the phase-1 march alone under ``torch.profiler``, frame setups made
+5. the phase-1 march alone under ``torch.profiler``, frame setups made
    beforehand: device activities per chunk or gated iteration (each is one
    launch from the host), and the march's device busy time over pass 1's
    march time.
 
 Device time by name is summed from the same activities: each kernel counts
 once (``key_averages``' "CUDA total" column counts a kernel under its aten op
-too).  The last line of stdout is one JSON object with every number.
+too); for the port's three kernels the device time a launch is printed.  The
+last line of stdout is one JSON object with every number.
 """
 from __future__ import annotations
 
@@ -69,7 +80,11 @@ def main(argv=None) -> int:
     ap.add_argument("--frames", type=int, default=24)
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--argb", action="store_true")
+    ap.add_argument("--device-init", action="store_true")
+    ap.add_argument("--compact", action="store_true")
     args = ap.parse_args(argv)
+    compact = args.compact
     if not torch.cuda.is_available():
         print("breakdown: no CUDA device", file=sys.stderr)
         return 2
@@ -87,10 +102,15 @@ def main(argv=None) -> int:
     renderer = Renderer.create(
         SCENES[args.scene](log=print),
         RenderConfig(width=args.width, height=args.height,
-                     occupancy_gate=args.gate), device="cuda")
+                     occupancy_gate=args.gate, argb_records=args.argb,
+                     host_init=not args.device_init), device="cuda",
+        compact=compact)
     print(f"{args.scene}: occupancy gate {renderer.occupancy_on}, chunk and "
           f"budget {renderer.march_params}, max_runs "
-          f"{renderer.device_world.max_runs}", flush=True)
+          f"{renderer.device_world.max_runs}, ARGB mode {renderer.argb_on} "
+          f"(max_col_colors {renderer.device_world.max_col_colors}), "
+          f"host_init {not args.device_init}, compaction {compact}",
+          flush=True)
     dims = renderer.device_world.dims
     wh = (args.width, args.height)
     ts = np.linspace(0.0, bench_path.BENCH_CLIP_LENGTH, args.frames)
@@ -104,6 +124,8 @@ def main(argv=None) -> int:
     print("t, setup_ms, march_ms, phase2_ms, chunks, rewinds, rays, direction")
     rows = []
     stats = raymarch.gated_stats
+    cstats = raymarch.compact_stats
+    cstats.update(rebuilds=0, chunks=0, ray_slots=0)
     for t, cam in zip(ts, cams):
         sync()
         t0 = time.perf_counter()
@@ -111,7 +133,7 @@ def main(argv=None) -> int:
         sync()
         t1 = time.perf_counter()
         n0, w0 = phase1_kernel.launches, stats["rewinds"]
-        rb = renderer.march(f)
+        rb = renderer.march(f, compact=compact)
         sync()
         t2 = time.perf_counter()
         renderer.phase2(f, rb)
@@ -126,23 +148,47 @@ def main(argv=None) -> int:
               flush=True)
     med = np.median(np.array(rows, dtype=np.float64), axis=0)
     tot = np.sum(np.array(rows, dtype=np.float64), axis=0)
+    rebuilds = cstats["rebuilds"] / len(cams)
+    mean_rays = cstats["ray_slots"] / max(cstats["chunks"], 1)
+    print(f"compaction: {rebuilds:.2f} index rebuilds a frame, mean "
+          f"{mean_rays:.1f} of {renderer.ray_capacity} ray slots a chunk",
+          flush=True)
+
+    def render(cam, compact=compact):  # a whole frame, as render_device
+        f = renderer.frame_setup(cam)
+        return renderer.phase2(f, renderer.march(f, compact=compact))
 
     # 2. whole frames, unprofiled
     sync()
     frame_ms = []
     for cam in cams:
         t0 = time.perf_counter()
-        renderer.render_device(cam)
+        render(cam)
         sync()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
     wall_ms = float(np.sum(frame_ms))
 
-    # 3. the same frames under the profiler
+    # 3. compaction on and off in turns, before the profiler is ever on
+    paired = {True: [], False: []}
+    for k, cam in enumerate(cams):
+        for c in ((True, False) if k % 2 else (False, True)):
+            sync()
+            t0 = time.perf_counter()
+            render(cam, compact=c)
+            sync()
+            paired[c].append((time.perf_counter() - t0) * 1e3)
+    on, off = np.array(paired[True]), np.array(paired[False])
+    print(f"compaction in turns: frame p50 {np.median(on):.3f} ms compacted, "
+          f"{np.median(off):.3f} ms not; the compacted march is faster in "
+          f"{int((on < off).sum())} of {len(cams)} pairs, median difference "
+          f"{np.median(on - off):+.3f} ms")
+
+    # 4. the same frames under the profiler
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for cam in cams:
-            renderer.render_device(cam)
+            render(cam)
         sync()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     dev = device_activities(prof)
@@ -160,14 +206,22 @@ def main(argv=None) -> int:
           f"busy share {busy_ms / wall_ms:.4f}; profiled wall {prof_wall_ms:.3f} ms")
     for n, (ms, k) in top:
         print(f"  {ms:10.3f} ms {ms / dev_sum_ms:7.2%} {k:6d}x  {n[:90]}")
+    per_launch = {}
+    for short in ("roll_chunk_kernel", "rasterize_chunk_kernel",
+                  "sample_raybuffer_kernel"):
+        ms, k = map(sum, zip(*([v for n, v in by_name.items() if short in n]
+                               or [[0.0, 0]])))
+        per_launch[short] = [ms, k, ms / k * 1e3 if k else None]
+        print(f"  {short}: {ms:.3f} ms over {k} launches -> "
+              f"{ms / max(k, 1) * 1e3:.2f} us on the device a launch")
 
-    # 4. the march alone under the profiler
+    # 5. the march alone under the profiler
     setups = [renderer.frame_setup(cam) for cam in cams]
     sync()
     n0 = phase1_kernel.launches
     with torch.profiler.profile(activities=acts) as prof:
         for f in setups:
-            renderer.march(f)
+            renderer.march(f, compact=compact)
         sync()
     iters = phase1_kernel.launches - n0
     march_dev = device_activities(prof)
@@ -178,6 +232,13 @@ def main(argv=None) -> int:
           f"-> march busy share {march_busy_ms / tot[1]:.4f}")
     print(json.dumps({
         "card": card, "scene": args.scene, "gate": args.gate,
+        "argb": renderer.argb_on, "host_init": not args.device_init,
+        "paired_frame_ms_p50_compacted": float(np.median(on)),
+        "paired_frame_ms_p50_uncompacted": float(np.median(off)),
+        "paired_compacted_wins": int((on < off).sum()),
+        "compact": compact, "index_rebuilds_per_frame": rebuilds,
+        "mean_ray_slots_per_chunk": mean_rays,
+        "kernel_device_ms_launches_us": per_launch,
         "frames": args.frames,
         "resolution": list(wh), "occupancy_on": renderer.occupancy_on,
         "march_params": list(renderer.march_params),

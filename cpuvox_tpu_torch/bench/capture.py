@@ -5,8 +5,11 @@ their plain versions at the shapes and on the data of a real frame.
 renderer's own march (dense or occupancy-gated, as ``occupancy_on``
 resolves), then rolls the next one and builds the cells its rasterize call
 would get: the chunk's visited cells on the dense march, the packed group
-of gated cells on the gated march.  ``chip_smoke.py`` and the ``cuda`` tests
-use it.
+of gated cells on the gated march.  Unless ``compact`` is False the march
+compacts its live rays as a Renderer created with ``compact=True`` does, so
+a capture deep enough into a frame holds the live-ray index its kernels are
+given.  ``chip_smoke.py`` and the ``cuda`` tests use
+it.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ class Capture:
     cells: rm.CellFields  # the next rasterize call's cells
     chunk: int
     gated: bool
+    index: torch.Tensor | None = None  # the live-ray index of the next calls
 
 
 def clone(nt):
@@ -39,7 +43,7 @@ def clone(nt):
     return type(nt)(*(t.clone() for t in nt))
 
 
-def capture(renderer, cam, k: int) -> Capture:
+def capture(renderer, cam, k: int, compact: bool = True) -> Capture:
     """March ``k`` iterations of one frame through the kernels' wrappers,
     then roll the next and build its cells, with the same steps as
     ``raymarch.march`` / ``raymarch.march_gated``."""
@@ -54,22 +58,28 @@ def capture(renderer, cam, k: int) -> Capture:
     ld = torch.from_numpy(f.cam_data.lod_distances).to(dev)
     far = float(np.float32(f.cam_data.far_clip))
     roll, raster = rm.march_ops(True)
-    dda, alive = f.dda, f.alive0
+    dda, alive = clone(f.dda), f.alive0
+    index = None
     for i in range(k + 1):
         alive = alive & rs.alive
+        n, index = rm.live_rays(alive, index, compact)
+        if not n:
+            raise ValueError(f"the march ended after {i} iterations, before "
+                             f"the capture at {k}")
         before = clone(dda), alive.clone()
         dda, alive, visits = roll(dda, alive, f.static.dirs, ld, far, dims,
-                                  chunk)
+                                  chunk, index=index)
         if gk:
             rs, g = rm.gated_group(renderer._wa, visits, rs, consts,
-                                   f.iteration_direction, gk)
+                                   f.iteration_direction, gk, index=index)
             cells = g.cells
         else:
             cells = rm.chunk_cells(renderer._wa, visits, f.iteration_direction)
         if i < k:
-            rs = raster(rs, cells, f.static, consts, f.iteration_direction)
+            rs = raster(rs, cells, f.static, consts, f.iteration_direction,
+                        index=index)
             if gk:
-                dda, needs = rm.rewind(dda, visits, rs, g)
-                alive = alive | needs
+                dda, needs = rm.rewind(dda, visits, rs, g, index=index)
+                alive = rm._or_rows(alive, index, needs)
     return Capture(f, rs, consts, ld, far, before[0], before[1], cells, chunk,
-                   bool(gk))
+                   bool(gk), index)

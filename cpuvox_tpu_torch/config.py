@@ -4,11 +4,15 @@ Every field here keeps the JAX package's name and default.  Left out are the
 knobs that shaped only the TPU kernels' layout or Mosaic's control flow
 (``kernel_run_block``, ``kernel_sweep_skip``, ``kernel_walk_tile``,
 ``kernel_walk_cond``, ``kernel_slot_gate``, ``kernel_roll``,
-``block_groups``, ``pallas_interpret``) and ``host_init`` (the port always initialises rays on
-the host: device ray init is not ported yet).  ``argb_records``,
-``block_fetch``, ``lite_records`` and ``drain_groups`` stay so that the
-Renderer can refuse their non-default settings, which the port does not
-carry.
+``block_groups``, ``pallas_interpret``).  ``block_fetch``, ``lite_records``
+and ``drain_groups`` stay so that the Renderer can refuse their non-default
+settings, which the port does not carry.  ``argb_records`` (kernel 2 writes
+the column's inline colors, phase 2 skips the color resolve) and
+``host_init`` are carried.  One default differs: ``host_init`` is True
+here, because on the H100 a frame's setup is up to 1.3 ms faster with the
+numpy host init than with the device init's hundred small launches, and was
+not slower in any run (a tie within the host's spread at the least,
+``PERF.md``); both give the same bits.
 """
 from __future__ import annotations
 
@@ -49,8 +53,17 @@ class RenderConfig:
     # "xla" runs the plain torch versions of the kernels (the twin of the
     # JAX package's XLA path); anything else the hand-written CUDA kernels
     backend: str = "pallas"
-    # ARGB records (phase 1 writes final colors): not ported, True raises
+    # ARGB records: inline each column's voxel colors into its record so
+    # phase 1 writes final colors and phase 2 skips the color resolve.
+    # Engages when no column holds more than 24 voxels
+    # (render/device.py INLINE_MAX_COLORS); the record grows by that many
+    # words, so it is opt-in.  Output-identical either way
     argb_records: bool = False
+    # per-ray init on the host (numpy, render/ray_init.py) or, with False,
+    # on the device (render/device_init.py); both give the same bits in
+    # every lane.  The JAX package defaults to False; on the H100 the host
+    # init is the faster one (PERF.md), so the port defaults to True
+    host_init: bool = True
     # occupancy-gated march ("auto" | "on" | "off"): read one 16x8-column
     # occupancy-tile row per tile a ray crosses per chunk and fetch column
     # records only for nonempty visits — the empty-column `continue` of

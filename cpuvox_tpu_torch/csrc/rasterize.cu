@@ -9,6 +9,20 @@
 // fields.  A cell that is not valid (a gated group's tail cell past the
 // ray's gated count) leaves the ray untouched.
 //
+// The value written (phase1_kernel.py:462-473, :556-566): in index mode
+// (MCC 0) a texel gets color_off + the color's index local to the column,
+// resolved to ARGB after the reprojection.  In ARGB mode (MCC > 0) the cell
+// carries the column's MCC color words (bit 31 cleared, so a written texel
+// stays >= 0) and the texel gets colors[local index]: one load, where the TPU
+// kernel runs an MCC-way select chain for want of a per-lane gather.  A local
+// index outside the MCC words writes 0, as that chain does.  MCC is a runtime
+// argument like MAXR.
+//
+// Live-ray index: with `index` (ascending int32, Rk entries) thread t works
+// on ray index[t]: its cells are column t of the (C, Rk) cell arrays, its
+// row, state and planes stay in place at full width.  A null index is every
+// ray.  See roll.cu.
+//
 // What bounds it on the H100: memory latency, not arithmetic.  Per visited
 // cell a ray reads its column record (8 + MAXR int32, coalesced across the
 // warp in (C, R) layout) and does ~100 f32 operations; per drawn run it
@@ -211,10 +225,23 @@ __device__ __forceinline__ void after_write(RayState& s, bool wrote) {
   if (s.nfp_min > s.nfp_max) s.alive = false;
 }
 
+// The value a texel gets for the column-local color index `local`: the
+// index into the world's colors, or in ARGB mode (mcc > 0) the color itself
+// from the cell's inline words.  The range test is one unsigned compare, not
+// a min/max pair (see "Rolled loops" above: no new three-input min/max).
+__device__ __forceinline__ int texel_value(int color_off, int local,
+                                           const int* colors, int mcc) {
+  if (mcc == 0) return color_off + local;
+  return static_cast<unsigned>(local) < static_cast<unsigned>(mcc)
+             ? colors[local]
+             : 0;
+}
+
 __device__ __forceinline__ void rasterize_cell(
     RayState& s, int* row, const Consts k, float ids0, float ids1, int lod,
     bool valid, int n_runs, int color_off, int cmin, int cmax,
-    const int* runs, int maxr, F3 pb, F3 pt, F3 pd) {
+    const int* runs, int maxr, const int* colors, int mcc, F3 pb, F3 pt,
+    F3 pd) {
   if (!valid) return;  // not this ray's cell: an exact no-op
   const float wmy = k.world_max_y;
   const int P = k.P;
@@ -380,7 +407,8 @@ __device__ __forceinline__ void rasterize_cell(
         const float wu1 = uv_lo1 + (uv_hi1 - uv_lo1) * l;
         const float u = wu1 / wu0;
         const int iu = (u != u) ? 0 : cpuvox::to_i32(floorf(u));
-        row[y] = color_off + (min(max(iu, 0), length - 1) + cidx);
+        row[y] = texel_value(color_off, min(max(iu, 0), length - 1) + cidx,
+                             colors, mcc);
         wrote = true;
       }
       after_write(s, wrote);
@@ -393,7 +421,8 @@ __device__ __forceinline__ void rasterize_cell(
     const bool skip_top = top_cap && eb_max > wb_max;
     const bool skip_bot = bot_cap && eb_min < wb_min;
     if (!((top_cap && !skip_top) || (bot_cap && !skip_bot))) continue;
-    const int cap_value = color_off + (top_cap ? cidx : cidx + length - 1);
+    const int cap_value = texel_value(
+        color_off, top_cap ? cidx : cidx + length - 1, colors, mcc);
     const float portion_cap = top_cap ? portion_top : portion_bottom;
     const Line cap = near_clip_line(
         lerp3(cs_min_next, cs_max_next, portion_cap),
@@ -427,11 +456,14 @@ __global__ void rasterize_chunk_kernel(
     const int* __restrict__ lod, const uint8_t* __restrict__ valid,
     const int* __restrict__ n_runs, const int* __restrict__ color_off,
     const int* __restrict__ cmin, const int* __restrict__ cmax,
-    const int* __restrict__ runs, const float* __restrict__ plane_bottom,
+    const int* __restrict__ runs, const int* __restrict__ colors,
+    const float* __restrict__ plane_bottom,
     const float* __restrict__ plane_top, const float* __restrict__ plane_dir,
-    const Consts k, int C, int maxr, int R) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
+    const Consts k, int C, int maxr, int mcc, const int* __restrict__ index,
+    int Rk) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= Rk) return;
+  const int r = index ? index[t] : t;
   RayState s;
   s.nfp_min = nfp_min[r];
   s.nfp_max = nfp_max[r];
@@ -447,10 +479,11 @@ __global__ void rasterize_chunk_kernel(
   const F3 pd = {plane_dir[3 * r], plane_dir[3 * r + 1], plane_dir[3 * r + 2]};
   int* row = raybuf + static_cast<size_t>(r) * k.P;
   for (int c = 0; c < C; ++c) {
-    const size_t i = static_cast<size_t>(c) * R + r;
+    const size_t i = static_cast<size_t>(c) * Rk + t;
     rasterize_cell(s, row, k, ids[2 * i], ids[2 * i + 1], lod[i], valid[i] != 0,
                    n_runs[i], color_off[i], cmin[i], cmax[i],
-                   runs + i * maxr, maxr, pb, pt, pd);
+                   runs + i * maxr, maxr, mcc ? colors + i * mcc : nullptr,
+                   mcc, pb, pt, pd);
   }
   nfp_min[r] = s.nfp_min;
   nfp_max[r] = s.nfp_max;
@@ -468,15 +501,15 @@ extern "C" int cpuvox_rasterize_chunk(
     void* raybuf, void* nfp_min, void* nfp_max, void* fb_min, void* fb_max,
     void* f_active, void* fdir_min, void* fdir_max, void* alive, void* ids,
     void* lod, void* valid, void* n_runs, void* color_off, void* cmin,
-    void* cmax, void* runs, void* plane_bottom, void* plane_top,
+    void* cmax, void* runs, void* colors, void* plane_bottom, void* plane_top,
     void* plane_dir, float world_max_y, float cam_y, float cam_y_norm,
     int has_solid, float solid_min_y, float solid_max_y, int dir, int C,
-    int maxr, int R, int P, void* stream) {
-  if (R > 0 && C > 0) {
+    int maxr, int mcc, void* index, int Rk, int P, void* stream) {
+  if (Rk > 0 && C > 0) {
     Consts k{world_max_y, cam_y, cam_y_norm, has_solid, solid_min_y,
              solid_max_y, dir, P};
     const int threads = 128;
-    rasterize_chunk_kernel<<<(R + threads - 1) / threads, threads, 0,
+    rasterize_chunk_kernel<<<(Rk + threads - 1) / threads, threads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
         static_cast<int*>(raybuf), static_cast<int*>(nfp_min),
         static_cast<int*>(nfp_max), static_cast<float*>(fb_min),
@@ -486,9 +519,11 @@ extern "C" int cpuvox_rasterize_chunk(
         static_cast<const int*>(lod), static_cast<const uint8_t*>(valid),
         static_cast<const int*>(n_runs), static_cast<const int*>(color_off),
         static_cast<const int*>(cmin), static_cast<const int*>(cmax),
-        static_cast<const int*>(runs), static_cast<const float*>(plane_bottom),
+        static_cast<const int*>(runs), static_cast<const int*>(colors),
+        static_cast<const float*>(plane_bottom),
         static_cast<const float*>(plane_top),
-        static_cast<const float*>(plane_dir), k, C, maxr, R);
+        static_cast<const float*>(plane_dir), k, C, maxr, mcc,
+        static_cast<const int*>(index), Rk);
   }
   return static_cast<int>(cudaGetLastError());
 }

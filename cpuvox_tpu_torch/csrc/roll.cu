@@ -14,6 +14,14 @@
 // line.  At ~9k rays the card is mostly idle (about 70 blocks of 128 threads
 // for 132 SMs); that is accepted for this first, exact version.
 //
+// Live-ray index: with `index` (ascending int32, Rk entries) thread t rolls
+// ray index[t] and writes visit field f of step c at (c * 13 + f) * Rk + t,
+// still one contiguous line a warp; the state is gathered from and written
+// back to its place in the full-width arrays.  A null index is every ray.
+// This replaces the reference's staged compaction (raymarch.py:1593-1605),
+// which sorts every per-ray array because a jitted TPU program needs static
+// shapes: here the dead rays cost no thread and no visit row.
+//
 // Bit-exactness: the roll has no a*b+c shape (built with -fmad=false all the
 // same), the step keeps `tmax + (bump ? tdelta : 0.0f)`, which maps -0.0 to
 // +0.0 like the reference, and min/max propagate NaN (common.cuh).
@@ -30,9 +38,10 @@ __global__ void roll_chunk_kernel(
     float* __restrict__ ids, int* __restrict__ lod,
     uint8_t* __restrict__ alive, const float* __restrict__ dirs,
     const float* __restrict__ lod_dist, int nld, float far_clip, int X, int Z,
-    int C, int R, int* __restrict__ visits) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
+    int C, const int* __restrict__ index, int Rk, int* __restrict__ visits) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= Rk) return;
+  const int r = index ? index[t] : t;
   int px = pos[2 * r], pz = pos[2 * r + 1];
   float tmx = tmax[2 * r], tmz = tmax[2 * r + 1];
   float tdx = tdelta[2 * r], tdz = tdelta[2 * r + 1];
@@ -73,20 +82,20 @@ __global__ void roll_chunk_kernel(
     }
     al = al && px >= 0 && px < X && pz >= 0 && pz < Z;
 
-    int* v = visits + static_cast<size_t>(c) * kNVF * R + r;
-    v[0 * R] = px;
-    v[1 * R] = pz;
-    v[2 * R] = __float_as_int(i0);
-    v[3 * R] = __float_as_int(i1);
-    v[4 * R] = lv;
-    v[5 * R] = al ? 1 : 0;
-    v[6 * R] = p_px;
-    v[7 * R] = p_pz;
-    v[8 * R] = __float_as_int(p_tmx);
-    v[9 * R] = __float_as_int(p_tmz);
-    v[10 * R] = __float_as_int(p_i0);
-    v[11 * R] = __float_as_int(p_i1);
-    v[12 * R] = p_lv;
+    int* v = visits + static_cast<size_t>(c) * kNVF * Rk + t;
+    v[0 * Rk] = px;
+    v[1 * Rk] = pz;
+    v[2 * Rk] = __float_as_int(i0);
+    v[3 * Rk] = __float_as_int(i1);
+    v[4 * Rk] = lv;
+    v[5 * Rk] = al ? 1 : 0;
+    v[6 * Rk] = p_px;
+    v[7 * Rk] = p_pz;
+    v[8 * Rk] = __float_as_int(p_tmx);
+    v[9 * Rk] = __float_as_int(p_tmz);
+    v[10 * Rk] = __float_as_int(p_i0);
+    v[11 * Rk] = __float_as_int(p_i1);
+    v[12 * Rk] = p_lv;
 
     // Step (SegmentDDAData.cs:135-150)
     const bool x_first = tmx < tmz;
@@ -123,18 +132,19 @@ __global__ void roll_chunk_kernel(
 extern "C" int cpuvox_roll_chunk(void* pos, void* tmax, void* tdelta,
                                  void* stp, void* ids, void* lod, void* alive,
                                  void* dirs, void* lod_dist, int nld,
-                                 float far_clip, int X, int Z, int C, int R,
-                                 void* visits, void* stream) {
-  if (R > 0) {
+                                 float far_clip, int X, int Z, int C,
+                                 void* index, int Rk, void* visits,
+                                 void* stream) {
+  if (Rk > 0) {
     const int threads = 128;
-    roll_chunk_kernel<<<(R + threads - 1) / threads, threads, 0,
+    roll_chunk_kernel<<<(Rk + threads - 1) / threads, threads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<int*>(pos), static_cast<float*>(tmax),
         static_cast<float*>(tdelta), static_cast<int*>(stp),
         static_cast<float*>(ids), static_cast<int*>(lod),
         static_cast<uint8_t*>(alive), static_cast<const float*>(dirs),
-        static_cast<const float*>(lod_dist), nld, far_clip, X, Z, C, R,
-        static_cast<int*>(visits));
+        static_cast<const float*>(lod_dist), nld, far_clip, X, Z, C,
+        static_cast<const int*>(index), Rk, static_cast<int*>(visits));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,6 +11,12 @@ writes the visit list as (C, 13, R) int32, f32 fields as their bits:
 ``roll_chunk`` takes the plain version for CPU tensors and launches the kernel
 for CUDA tensors.  The kernel updates the DDA state and ``alive`` in place
 (saving a copy of the state per chunk) and returns them.
+
+With a live-ray ``index`` (ascending int32 (Rk,)) thread t rolls ray
+``index[t]``: the state stays in place at full width R, the visits are
+(C, 13, Rk), and a ray outside the index is not touched.  This is the port's
+form of the reference's staged compaction (``raymarch.py:1593-1605``): no
+array is sorted or cut, the kernel gathers its own rays.
 """
 from __future__ import annotations
 
@@ -29,18 +35,20 @@ roll_chunk_ref = rm._roll_chunk
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 9 + [_I, ctypes.c_float, _I, _I, _I, _I, _P, _P]
+_ARGTYPES = [_P] * 9 + [_I, ctypes.c_float, _I, _I, _I, _P, _I, _P, _P]
 
 
 def roll_chunk(dda: rm.DDAState, alive, dirs, lod_distances, far_clip, dims,
-               chunk: int):
-    """Roll every ray ``chunk`` cells; same signature and result as
-    ``raymarch._roll_chunk``: (dda, alive, visits (chunk, 13, R) int32)."""
+               chunk: int, index=None):
+    """Roll every ray (or the rays of ``index``) ``chunk`` cells; same
+    signature and result as ``raymarch._roll_chunk``: (dda, alive, visits
+    (chunk, 13, Rk) int32)."""
     global launches
     if not dda.pos.is_cuda:
         return roll_chunk_ref(dda, alive, dirs, lod_distances, far_clip, dims,
-                              chunk)
+                              chunk, index=index)
     R = dda.pos.shape[0]
+    Rk = R if index is None else index.shape[0]
     g = _build.require
     ptrs = [
         g(dda.pos, torch.int32, (R, 2), "pos"),
@@ -53,12 +61,14 @@ def roll_chunk(dda: rm.DDAState, alive, dirs, lod_distances, far_clip, dims,
         g(dirs, torch.float32, (R, 2), "dirs"),
         g(lod_distances, torch.float32, None, "lod_distances"),
     ]
-    visits = torch.empty((chunk, rm.NVF, R), dtype=torch.int32,
+    p_index = (None if index is None
+               else g(index, torch.int32, (Rk,), "index"))
+    visits = torch.empty((chunk, rm.NVF, Rk), dtype=torch.int32,
                          device=dda.pos.device)
     fn = _build.function("cpuvox_roll_chunk", _ARGTYPES)
     code = fn(*ptrs, lod_distances.numel(), float(np.float32(far_clip)),
-              int(dims[0]), int(dims[2]), chunk, R, visits.data_ptr(),
-              _build.stream_ptr(visits))
+              int(dims[0]), int(dims[2]), chunk, p_index, Rk,
+              visits.data_ptr(), _build.stream_ptr(visits))
     _build.check(code, "cpuvox_roll_chunk")
     launches += 1
     return dda, alive, visits

@@ -1,11 +1,12 @@
 """Device-resident world: all LOD levels concatenated into flat arrays.
 
-A copy of ``cpuvox_tpu/render/device.py`` (plain numpy), cut to the layout the
-port renders: the inline column records (one row per column, runs 16-bit
-packed where that shrinks the row), the occupancy tiles of the gated march,
-the LOD0 empty fraction and the solid Y bounds.  Left out: the split record
-layout (max_runs > ``INLINE_MAX_RUNS``), the lite records and the ARGB inline
-colors, whose callers the port does not carry.  A (position, lod) pair
+A copy of ``cpuvox_tpu/render/device.py`` (plain numpy), cut to the layouts
+the port renders: the inline column records (one row per column, runs 16-bit
+packed where that shrinks the row, the column's ARGB colors appended in ARGB
+mode), the split layout for columns of more than ``INLINE_MAX_RUNS`` runs (an
+8-int meta record plus the flat run arrays), the occupancy tiles of the gated
+march, the LOD0 empty fraction and the solid Y bounds.  Left out: the lite
+records, whose caller the port does not carry.  A (position, lod) pair
 resolves to a column with integer math:
 
     ci = col_base[lod] + (x >> lod) * grid_z[lod] + (z >> lod)
@@ -22,7 +23,7 @@ import numpy as np
 from cpuvox_tpu_torch.utils.colors import pack_argb
 from cpuvox_tpu_torch.world.rle import WorldLOD
 
-REC = 8  # ints per column meta record: n_runs, run_off, color_off, cmin, cmax
+REC = 8  # ints per split-layout column record: n_runs, run_off, color_off, cmin, cmax
 REC_META = 4  # leading meta ints in an inline record: n_runs, color_off, cmin, cmax
 INLINE_MAX_RUNS = 60  # inline runs into the record while 4 + max_runs <= 64 ints
 # occupancy tiles: one 8-int row per OCC_TILE_X x OCC_TILE_Z block of columns
@@ -34,6 +35,12 @@ OCC_TILE_X = 16
 OCC_TILE_Z = 8
 OCC_ROW = 8
 
+INLINE_MAX_COLORS = 24  # ARGB mode: also inline the column's voxel colors when
+# every column has <= this many voxels; phase 1 then writes final ARGB texels
+# and phase 2 skips the color resolve.  Colors ride with bit 31 (the alpha MSB,
+# always 1 for opaque ARGB) CLEARED so the rasterizer's "unwritten < 0" sentinel
+# keeps working; the final skybox pass restores it.
+
 
 @dataclasses.dataclass
 class DeviceWorld:
@@ -43,14 +50,23 @@ class DeviceWorld:
     lod_levels: int
     col_base: np.ndarray  # int32 [8]
     grid_z: np.ndarray  # int32 [8]  (Z >> lod per level)
+    # split layout (max_runs > INLINE_MAX_RUNS, else None): [n_runs, run_off,
+    # color_off, cmin, cmax, pad...] per column, and every column's runs in
+    # one flat array; runs_rev holds each column's runs reversed in place
+    col_rec: np.ndarray | None  # int32 [total_cols, REC]
+    runs: np.ndarray | None  # int32 [total_runs + max_runs] (tail-padded)
+    runs_rev: np.ndarray | None
     colors: np.ndarray  # uint32 [1 + total_colors], [0] = skybox
     max_runs: int  # max col_runs over every LOD (bounds the run loop)
     # inline layout (max_runs <= INLINE_MAX_RUNS): [n_runs, color_off, cmin,
-    # cmax, runs...] per column in one row; rec_rev holds the runs reversed
-    # for the upward iteration direction (DrawSegmentRayJob.cs:432-437).
-    # None for deeper worlds, which the port does not render.
+    # cmax, runs...(, colors...)] per column in one row; rec_rev holds the
+    # runs reversed for the upward iteration direction
+    # (DrawSegmentRayJob.cs:432-437).  None for deeper worlds.
     rec_fwd: np.ndarray | None = None  # int32 [total_cols, 4 + padded max_runs]
     rec_rev: np.ndarray | None = None
+    # ARGB mode (INLINE_MAX_COLORS): the column's voxel colors are inline too
+    # (alpha MSB cleared), appended after the runs; > 0 marks it
+    max_col_colors: int = 0
     lod0_voxels: int = 0
     # occupancy tiles (see OCC_TILE_X): per-LOD emptiness bitmaps + tile
     # cmin/cmax, all LODs concatenated like col_base
@@ -137,10 +153,12 @@ def reverse_runs(runs: np.ndarray, col_offset: np.ndarray, col_runs: np.ndarray
 
 
 def build_device_world(lods: list[WorldLOD],
-                       skybox_rgb: tuple[int, int, int] = (25, 25, 25)
-                       ) -> DeviceWorld:
-    """Concatenate the LOD chain into the flat arrays (``rec_fwd``/``rec_rev``
-    stay None when a column has more than ``INLINE_MAX_RUNS`` runs)."""
+                       skybox_rgb: tuple[int, int, int] = (25, 25, 25),
+                       inline_colors: bool = False) -> DeviceWorld:
+    """Concatenate the LOD chain into the flat arrays: the inline records, or
+    the split layout when a column has more than ``INLINE_MAX_RUNS`` runs.
+    ``inline_colors`` asks for ARGB mode, which engages when no column holds
+    more than ``INLINE_MAX_COLORS`` voxels (``max_col_colors`` > 0)."""
     lod_levels = len(lods)
     col_base = np.zeros(8, np.int32)
     grid_z = np.ones(8, np.int32)
@@ -176,6 +194,9 @@ def build_device_world(lods: list[WorldLOD],
     rec[:, 4] = np.concatenate(col_max).astype(np.int32)
 
     max_runs = max(max_runs, 1)
+    pad = np.zeros(max_runs, np.int32)  # tail pad: slices never clamp/shift
+    runs_fwd = np.concatenate([runs, pad])
+    runs_bwd = np.concatenate([reverse_runs(runs, co, cr), pad])
     colors = np.concatenate(
         [[pack_argb(*skybox_rgb)], *colors_parts]).astype(np.uint32)
     dw = DeviceWorld(
@@ -183,6 +204,9 @@ def build_device_world(lods: list[WorldLOD],
         lod_levels=lod_levels,
         col_base=col_base,
         grid_z=grid_z,
+        col_rec=rec,
+        runs=runs_fwd,
+        runs_rev=runs_bwd,
         colors=colors,
         max_runs=max_runs,
         lod0_voxels=int(lods[0].colors.shape[0]),
@@ -195,38 +219,47 @@ def build_device_world(lods: list[WorldLOD],
         dw.solid_min_y = float(rec[occ_any, 3].min())
         dw.solid_max_y = float(rec[occ_any, 4].max())
     if max_runs <= INLINE_MAX_RUNS:
-        pad = np.zeros(max_runs, np.int32)  # tail pad: slices never clamp/shift
-        runs_fwd = np.concatenate([runs, pad])
-        runs_bwd = np.concatenate([reverse_runs(runs, co, cr), pad])
-        dw.rec_fwd = _inline_records(rec, runs_fwd, max_runs)
-        dw.rec_rev = _inline_records(rec, runs_bwd, max_runs)
+        # per-column voxel-color count = sum of the column's solid-run lengths
+        # (offsets are NOT monotone in column order for voxel-soup worlds)
+        solid_len = np.where(runs_fwd >= 0, runs_fwd & 0xFFFF, 0).astype(np.int64)
+        csum = np.concatenate([[0], np.cumsum(solid_len)])
+        off64 = co.astype(np.int64)
+        col_colors = csum[off64 + cr] - csum[off64]
+        max_cc = int(col_colors.max()) if col_colors.size else 0
+        mcc = max_cc if inline_colors and 0 < max_cc <= INLINE_MAX_COLORS else 0
+        dw.rec_fwd = _inline_records(rec, runs_fwd, max_runs, colors, mcc)
+        dw.rec_rev = _inline_records(rec, runs_bwd, max_runs, colors, mcc)
+        dw.max_col_colors = mcc
+        dw.col_rec = dw.runs = dw.runs_rev = None
     return dw
 
 
-def packed_run_words(max_runs: int) -> int:
+def packed_run_words(max_runs: int, max_cc: int = 0) -> int:
     """Run-region width in int32 words for the inline record, and whether the
     16-bit two-runs-per-word packing applies.  Packing halves the run region
     (run -> air bit | 15-bit length; the color index is RECONSTRUCTED after the
     fetch by a cumulative sum of solid lengths — raymarch._fetch_columns), and
     is used exactly when it shrinks the row padded to 8 ints."""
-    rw_full = ((REC_META + max_runs + 7) // 8) * 8
+    rw_full = ((REC_META + max_runs + max_cc + 7) // 8) * 8
     w_packed = (max_runs + 1) // 2
-    rw_packed = ((REC_META + w_packed + 7) // 8) * 8
+    rw_packed = ((REC_META + w_packed + max_cc + 7) // 8) * 8
     return w_packed if rw_packed < rw_full else max_runs
 
 
-def _inline_records(rec: np.ndarray, runs: np.ndarray, max_runs: int
-                    ) -> np.ndarray:
-    """Pack [n_runs, color_off, cmin, cmax, run0..run_{max_runs-1}] per column
-    into one row padded to a multiple of 8 ints.  When packed_run_words() says
-    the 16-bit packing shrinks the row, two runs ride per int32 word."""
+def _inline_records(rec: np.ndarray, runs: np.ndarray, max_runs: int,
+                    colors: np.ndarray, max_cc: int = 0) -> np.ndarray:
+    """Pack [n_runs, color_off, cmin, cmax, run0..run_{max_runs-1}
+    (, argb0..argb_{max_cc-1})] per column into one row padded to a multiple
+    of 8 ints.  Inline colors carry the alpha MSB cleared (see
+    INLINE_MAX_COLORS).  When packed_run_words() says the 16-bit packing
+    shrinks the row, two runs ride per int32 word."""
     n_cols = rec.shape[0]
     k = np.arange(max_runs, dtype=np.int64)[None, :]
     idx = rec[:, 1].astype(np.int64)[:, None] + k  # run_offset + k (tail-padded)
     vals = runs[np.minimum(idx, runs.shape[0] - 1)]
     vals = np.where(k < rec[:, 0:1], vals, 0)
 
-    rwords = packed_run_words(max_runs)
+    rwords = packed_run_words(max_runs, max_cc)
     if rwords != max_runs:  # 16-bit packing
         length = vals & np.int32(0xFFFF)
         assert int(length.max(initial=0)) < 0x8000, "run length needs 15 bits"
@@ -240,11 +273,17 @@ def _inline_records(rec: np.ndarray, runs: np.ndarray, max_runs: int
     else:
         words = vals
 
-    rw = ((REC_META + rwords + 7) // 8) * 8
+    rw = ((REC_META + rwords + max_cc + 7) // 8) * 8
     out = np.zeros((n_cols, rw), np.int32)
     out[:, 0] = rec[:, 0]
     out[:, 1] = rec[:, 2]  # color_off
     out[:, 2] = rec[:, 3]  # world min
     out[:, 3] = rec[:, 4]  # world max
     out[:, REC_META:REC_META + rwords] = words
+    if max_cc:
+        kc = np.arange(max_cc, dtype=np.int64)[None, :]
+        cidx = rec[:, 2].astype(np.int64)[:, None] + kc  # global color offset
+        cvals = (colors[np.minimum(cidx, colors.shape[0] - 1)]
+                 & np.uint32(0x7FFFFFFF)).astype(np.int32)
+        out[:, REC_META + rwords:REC_META + rwords + max_cc] = cvals
     return out

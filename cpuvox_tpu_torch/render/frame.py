@@ -1,18 +1,22 @@
-"""Full-frame render orchestration (``cpuvox_tpu/render/frame.py``) with host
-ray init.
+"""Full-frame render orchestration (``cpuvox_tpu/render/frame.py``).
 
-Per frame: camera + vanishing-point segments on the host (numpy), host ray
-init handed to the device, the phase-1 march, phase-2 reprojection in
-color-index space, the color resolve of the screen's pixels, and the nearest
-upscale of a ``render_scale`` frame.  The march is the dense one (roll ->
-fetch -> rasterize per chunk) or, where ``occupancy_on`` resolves true, the
+Per frame: camera + vanishing-point segments on the host (numpy), ray init
+on the host (``ray_init``) or with ``host_init=False`` on the device
+(``device_init``), the phase-1 march (over a live-ray index where the
+Renderer was created with ``compact=True``), phase-2 reprojection in
+color-index space, the color resolve of the screen's pixels, and the nearest upscale of a
+``render_scale`` frame.  The march is the dense one (roll -> fetch ->
+rasterize per chunk) or, where ``occupancy_on`` resolves true, the
 occupancy-gated one (``raymarch.march_gated``); both give the same raybuffer.
+In ARGB mode (``argb_records`` on a world whose columns hold few enough
+voxels, ``argb_on``) the records carry the columns' colors, phase 1 writes
+final colors and phase 2 samples them with no resolve.
 
 ``RenderConfig.backend`` keeps its meaning from the JAX package: "xla" runs
 the plain torch versions of the kernels (the twin), anything else the
 hand-written CUDA kernels (which take their plain versions on a CPU tensor).
-Unlike the JAX package, the gate does not depend on the backend: the plain
-versions run the gated march too.  The Renderer works on the card unless it
+Unlike the JAX package, neither the gate nor ARGB mode depends on the
+backend: the plain versions run the gated march and the ARGB write too.  The Renderer works on the card unless it
 is asked for another device.
 """
 from __future__ import annotations
@@ -27,7 +31,7 @@ from cpuvox_tpu_torch.config import RenderConfig
 
 from . import camera as cm
 from . import device as world_device
-from . import ray_init, raymarch, reproject
+from . import device_init, ray_init, raymarch, reproject
 from . import segments as sg
 
 
@@ -48,8 +52,6 @@ class FrameSetup(NamedTuple):
 
 def _check_supported(config: RenderConfig):
     """Refuse the JAX package's settings that the port does not carry."""
-    if config.argb_records:
-        raise NotImplementedError("argb_records=True is not ported yet")
     if config.block_fetch == "on":
         raise NotImplementedError("block_fetch='on' (the block-conditional "
                                   "gated fetch) is not ported")
@@ -72,19 +74,33 @@ class Renderer:
     lod_distances: np.ndarray | None = None
     far_clip: float = 0.0
     _wa: raymarch.WorldArrays | None = None
+    # live-ray compaction in the march.  Off unless asked for: on an H100 the
+    # march is bound by the host's launches, and the index adds some (31 to a
+    # gated iteration), so the device time it saves does not reach the frame
+    compact: bool = False
 
     @classmethod
     def create(cls, lods, config: RenderConfig = RenderConfig(),
-               device="cuda"):
+               device="cuda", compact: bool = False):
         _check_supported(config)
-        dw = world_device.build_device_world(lods, skybox_rgb=config.skybox_rgb)
-        r = cls(device_world=dw, config=config, device=torch.device(device))
-        r._wa = raymarch.world_arrays(dw, r.device)  # raises for split layouts
+        dw = world_device.build_device_world(
+            lods, skybox_rgb=config.skybox_rgb,
+            inline_colors=config.argb_records)
+        r = cls(device_world=dw, config=config, device=torch.device(device),
+                compact=compact)
+        r._wa = raymarch.world_arrays(dw, r.device)
         return r
 
     @property
     def kernels(self) -> bool:
         return self.config.backend != "xla"
+
+    @property
+    def argb_on(self) -> bool:
+        """ARGB mode resolved against the world (``frame.py:57``): the
+        records carry the columns' colors (``argb_records`` was asked for and
+        no column holds more than ``INLINE_MAX_COLORS`` voxels)."""
+        return self.device_world.max_col_colors > 0
 
     @property
     def render_wh(self) -> tuple[int, int]:
@@ -175,9 +191,16 @@ class Renderer:
         ctxs = sg.build_segment_contexts(cam, segs, vp_screen)
         n_td = segs[0].ray_count + segs[1].ray_count
         tables = reproject.reproject_tables(segs, ctxs, vp_screen, n_td)
-        static, dda, alive0, _meta = ray_init.init_rays(
-            cam_data, segs, ctxs, self.device_world.dims,
-            fixed_size=self.ray_capacity, device=self.device)
+        dims, R = self.device_world.dims, self.ray_capacity
+        if self.config.host_init:
+            static, dda, alive0, _meta = ray_init.init_rays(
+                cam_data, segs, ctxs, dims, fixed_size=R, device=self.device)
+        else:
+            if sum(s.ray_count for s in segs) > R:
+                raise ValueError(f"the frame's rays exceed capacity {R}")
+            static, dda, alive0 = device_init.init_rays_device(
+                device_init.build_frame_params(cam_data, segs, ctxs), dims, R,
+                self.device)
         return FrameSetup(
             cam=cam, cam_data=cam_data, segs=segs, ctxs=ctxs,
             vp_screen=vp_screen, tables=tables, static=static, dda=dda,
@@ -185,8 +208,13 @@ class Renderer:
             iteration_direction=(
                 -1 if cam_data.inverse_element_iteration_direction else 1))
 
-    def march(self, f: FrameSetup) -> torch.Tensor:
-        """Phase 1 of a frame: the raybuffer of color indices (R, P) int32."""
+    def march(self, f: FrameSetup, compact: bool | None = None) -> torch.Tensor:
+        """Phase 1 of a frame: the raybuffer (R, P) int32 of color indices,
+        or in ARGB mode of final colors.  ``compact`` True marches on a
+        live-ray index, False marches every ray slot to the end, None does as
+        the Renderer was created (``compact=``); the raybuffer is the same."""
+        if compact is None:
+            compact = self.compact
         dims = self.device_world.dims
         chunk, max_chunks = self.march_params
         smin, smax = self.solid_bounds
@@ -196,11 +224,13 @@ class Renderer:
             iteration_direction=f.iteration_direction, chunk=chunk,
             max_chunks=max_chunks, dims=dims, pixel_len=max(self.render_wh),
             solid_min_y=smin, solid_max_y=smax, kernels=self.kernels,
-            gated_cells=self.gated_group_cells if self.occupancy_on else 0)
+            gated_cells=self.gated_group_cells if self.occupancy_on else 0,
+            compact=compact)
 
     def render_device(self, cam: cm.Camera):
         """Render one frame on the device.  Returns (screen (H, W) int32 ARGB
-        bits, raybuffer of color indices (R, P) int32, frame geometry)."""
+        bits, raybuffer (R, P) int32 of color indices or, in ARGB mode, of
+        colors, frame geometry)."""
         f = self.frame_setup(cam)
         raybuf_idx = self.march(f)
         return self.phase2(f, raybuf_idx), raybuf_idx, (
@@ -209,10 +239,17 @@ class Renderer:
     def phase2(self, f: FrameSetup, raybuf_idx: torch.Tensor) -> torch.Tensor:
         """The screen (H, W) int32 ARGB bits from a frame's raybuffer."""
         rw, rh = self.render_wh
-        # reproject in color-INDEX space, then resolve only the screen's pixels
-        screen_idx = reproject.reproject(raybuf_idx, f.tables, rw, rh,
-                                         skybox=0, kernels=self.kernels)
-        screen = raymarch.resolve_colors(screen_idx, self._wa.colors)
+        if self.argb_on:
+            # phase 1 wrote final colors: sample them and that is the screen
+            screen = reproject.reproject(
+                raybuf_idx, f.tables, rw, rh, kernels=self.kernels,
+                skybox=int(self.device_world.colors[:1].view(np.int32)[0]))
+        else:
+            # reproject in color-INDEX space, then resolve only the screen's
+            # pixels
+            screen_idx = reproject.reproject(raybuf_idx, f.tables, rw, rh,
+                                             skybox=0, kernels=self.kernels)
+            screen = raymarch.resolve_colors(screen_idx, self._wa.colors)
         cfg = self.config
         if (cfg.width, cfg.height) != (rw, rh):
             # nearest upscale of the scaled render (UnityManager.cs:57-63)
@@ -235,7 +272,8 @@ class Renderer:
             return screen_np
         n_td = segs[0].ray_count + segs[1].ray_count
         n_lr = segs[2].ray_count + segs[3].ray_count
-        argb = raymarch.resolve_colors(raybuf_idx, self._wa.colors)
+        argb = raybuf_idx if self.argb_on else raymarch.resolve_colors(
+            raybuf_idx, self._wa.colors)
         argb_np = argb.cpu().numpy().view(np.uint32)
         rw, rh = self.render_wh
         td = argb_np[:n_td, :rh]

@@ -11,7 +11,10 @@ ExecuteRay, re-expressed data-parallel over all rays):
   visited columns' records, then rasterizes the cells in order;
 - ``return``/``break`` early-outs become per-ray ``alive`` masks;
 - the raybuffer holds int32 color indices into ``WorldArrays.colors``
-  (skybox = 0, unwritten = -1), resolved to ARGB once per frame.
+  (skybox = 0, unwritten = -1), resolved to ARGB once per frame; in ARGB
+  mode (``WorldArrays.max_col_colors`` > 0) the column's colors ride in its
+  record and the raybuffer holds final colors with bit 31 cleared until the
+  deferred skybox fill restores it.
 
 Where torch and XLA differ on the same expression, the port follows XLA:
 
@@ -27,6 +30,17 @@ Two marches share the roll and the rasterizer: the dense one (``march``)
 fetches and rasterizes every visited cell; the occupancy-gated one
 (``march_gated``, ``raymarch.py:1228-1580``) first reads one occupancy-tile
 row per tile a ray crosses and rasterizes only the cells that may draw.
+
+Both can compact the live rays (``compact``; the reference's staged
+compaction, ``raymarch.py:1085-1090`` and ``:1593-1605``), in this card's
+form: the
+raybuffer and all per-ray state stay in place at full width R, and the roll,
+the gate, the fetch and the rasterizer work on a live-ray index (ascending
+int32 (Rk,)), rebuilt whenever the live count has fallen to half of Rk or
+less.  The count is read where the march already asked the device whether
+any ray lives, so compaction adds no host sync.  It does add launches (the
+takes and puts of the state the gated glue reads), which is why the Renderer
+leaves it off unless it is created with ``compact=True``.
 """
 from __future__ import annotations
 
@@ -41,6 +55,7 @@ BIG = 1 << 24
 I32_MIN = -(1 << 31)
 I32_MAX = (1 << 31) - 1
 NVF = 13  # visit fields per DDA step (order in ops/roll_kernel.py)
+MAGENTA_I32 = int(np.uint32(0xFFFF1493).view(np.int32))  # unwritten texels
 
 
 class RayStatic(NamedTuple):
@@ -76,17 +91,26 @@ class RasterState(NamedTuple):
 
 
 class WorldArrays(NamedTuple):
-    """The device world: inline column records and the occupancy tiles."""
+    """The device world: column records (inline, or split for columns of
+    more than ``INLINE_MAX_RUNS`` runs) and the occupancy tiles."""
 
     col_base: torch.Tensor  # (8,) i32 first column of each LOD
     grid_z: torch.Tensor  # (8,) i32 columns per x-row of each LOD
-    rec_fwd: torch.Tensor  # (n_cols, RW) i32 [n_runs, color_off, cmin, cmax, runs]
-    rec_rev: torch.Tensor  # the same with each column's runs reversed
+    # inline layout, else None: (n_cols, RW) i32
+    # [n_runs, color_off, cmin, cmax, runs..., (colors...)]
+    rec_fwd: torch.Tensor | None
+    rec_rev: torch.Tensor | None  # the same with each column's runs reversed
     colors: torch.Tensor  # (n_colors,) i32 view of uint32 ARGB, [0] = skybox
     max_runs: int
     occ_tiles: torch.Tensor  # (n_tiles, 8) i32 [4 bitmap words, cmin, cmax, pad]
     tile_base: torch.Tensor  # (8,) i32 first tile row of each LOD
     tile_gz: torch.Tensor  # (8,) i32 tiles per x-row of each LOD
+    max_col_colors: int = 0  # > 0: ARGB mode, that many color words a record
+    # split layout, else None: (n_cols, 8) i32 [n_runs, run_off, color_off,
+    # cmin, cmax, pad] and the flat run arrays (tail-padded by max_runs)
+    col_rec: torch.Tensor | None = None
+    runs: torch.Tensor | None = None
+    runs_rev: torch.Tensor | None = None
 
 
 class CellFields(NamedTuple):
@@ -100,6 +124,8 @@ class CellFields(NamedTuple):
     cmin: torch.Tensor  # (C, R) i32
     cmax: torch.Tensor  # (C, R) i32
     runs: torch.Tensor  # (C, R, max_runs) i32 [color index << 16 | length]
+    # ARGB mode: (C, R, MCC) i32, the column's colors with bit 31 cleared
+    colors: torch.Tensor | None = None
 
 
 def to_i32(x: torch.Tensor) -> torch.Tensor:
@@ -135,12 +161,10 @@ def world_arrays(dw, device) -> WorldArrays:
     ``cpuvox_tpu/render/raymarch.py:238``).  Colors stay int32 inside torch
     (uint32 arithmetic in torch is thin); they are viewed back as uint32 at
     the numpy boundary."""
-    if dw.rec_fwd is None:
-        raise NotImplementedError(
-            f"split record layout (max_runs {dw.max_runs} > "
-            f"{world_device.INLINE_MAX_RUNS}) is not ported")
 
     def put(x):
+        if x is None:
+            return None
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
     return WorldArrays(
@@ -148,7 +172,8 @@ def world_arrays(dw, device) -> WorldArrays:
         rec_fwd=put(dw.rec_fwd), rec_rev=put(dw.rec_rev),
         colors=put(dw.colors.view(np.int32)), max_runs=int(dw.max_runs),
         occ_tiles=put(dw.occ_tiles), tile_base=put(dw.tile_base),
-        tile_gz=put(dw.tile_gz))
+        tile_gz=put(dw.tile_gz), max_col_colors=int(dw.max_col_colors),
+        col_rec=put(dw.col_rec), runs=put(dw.runs), runs_rev=put(dw.runs_rev))
 
 
 def _cell_index(wa: WorldArrays, lodc, xc, zc):
@@ -164,15 +189,28 @@ def _occ_tile_index(wa: WorldArrays, lodc, xc, zc):
 
 
 def _fetch_columns(wa: WorldArrays, ci, v_valid, iteration_direction: int):
-    """Fetch the visited columns' meta + runs from the inline records
-    (``raymarch.py:158``): (n_runs, color_off, cmin, cmax, runs).
+    """Fetch the visited columns' meta + runs (``raymarch.py:158``):
+    (n_runs, color_off, cmin, cmax, runs, colors), colors None outside ARGB
+    mode.
 
-    Records whose run region is 16-bit packed are unpacked to the int32 run
-    format: the color index is an exclusive cumsum of solid lengths (forward);
-    the reversed table keeps each run's forward index,
-    total_solid - cum_before_rev - length.
+    Inline records whose run region is 16-bit packed are unpacked to the
+    int32 run format: the color index is an exclusive cumsum of solid lengths
+    (forward); the reversed table keeps each run's forward index,
+    total_solid - cum_before_rev - length.  The split layout (columns of more
+    than ``INLINE_MAX_RUNS`` runs) fetches an 8-int meta row, then
+    ``max_runs`` contiguous run words from ``run_off``, from the reversed
+    array going up.
     """
     max_runs = wa.max_runs
+    if wa.rec_fwd is None:
+        rec = wa.col_rec.index_select(0, ci.reshape(-1).long())
+        rec = rec.reshape(ci.shape + (rec.shape[-1],))
+        n_runs = torch.where(v_valid, rec[..., 0], 0)
+        runs_src = wa.runs if iteration_direction > 0 else wa.runs_rev
+        k = torch.arange(max_runs, dtype=torch.int64, device=rec.device)
+        runs = runs_src[rec[..., 1:2].long() + k]  # tail pad: never past the end
+        return n_runs, rec[..., 2], rec[..., 3], rec[..., 4], runs, None
+    mcc = wa.max_col_colors
     rec_src = wa.rec_fwd if iteration_direction > 0 else wa.rec_rev
     rec = rec_src.index_select(0, ci.reshape(-1).long())
     rec = rec.reshape(ci.shape + (rec.shape[-1],))
@@ -181,9 +219,11 @@ def _fetch_columns(wa: WorldArrays, ci, v_valid, iteration_direction: int):
     cmin = rec[..., 2]
     cmax = rec[..., 3]
     meta = world_device.REC_META
-    rwords = world_device.packed_run_words(max_runs)
+    rwords = world_device.packed_run_words(max_runs, mcc)
+    colors = rec[..., meta + rwords:meta + rwords + mcc] if mcc else None
     if rwords == max_runs:
-        return n_runs, color_off, cmin, cmax, rec[..., meta:meta + rwords]
+        return (n_runs, color_off, cmin, cmax, rec[..., meta:meta + rwords],
+                colors)
     words = rec[..., meta:meta + rwords]
     lo = words & 0xFFFF
     hi = (words >> 16) & 0xFFFF  # logical shift: the high half is unsigned
@@ -201,7 +241,7 @@ def _fetch_columns(wa: WorldArrays, ci, v_valid, iteration_direction: int):
     runs = torch.where(air, (-1 << 16) | length, (cidx << 16) | length)
     k = torch.arange(max_runs, dtype=torch.int32, device=rec.device)
     runs = torch.where(k < rec[..., 0:1], runs, 0)
-    return n_runs, color_off, cmin, cmax, runs
+    return n_runs, color_off, cmin, cmax, runs, colors
 
 
 # ------------------------------------------------------------------ DDA roll
@@ -243,15 +283,41 @@ def _select(mask, new: DDAState, old: DDAState) -> DDAState:
                                   b, a) for a, b in zip(old, new)))
 
 
+def _take(x, index):
+    """The rows of ``x`` a live-ray index names (all of them for None)."""
+    return x if index is None else x.index_select(0, index)
+
+
+def _put(full, index, part):
+    """``full`` with the index's rows replaced by ``part`` (a new tensor)."""
+    return part if index is None else full.index_copy(0, index, part)
+
+
+def _or_rows(full, index, part):
+    """``full`` (R,) with ``part`` or-ed into the index's rows."""
+    return _put(full, None if index is None else index.long(),
+                _take(full, index) | part)
+
+
 def _roll_chunk(dda: DDAState, alive, dirs, lod_distances, far_clip, dims,
-                chunk: int):
+                chunk: int, index=None):
     """Advance every ray ``chunk`` cells and record each visit
     (``raymarch.py:445``): lod switch -> visit cell -> step, plus the
     out-of-world retire.  Returns (dda, alive, visits) with visits a
     (chunk, 13, R) int32 stack, f32 fields as their bits, in the order of
     ``ops/roll_kernel.py``: pos x/z, ids 0/1, lod, valid, then the
     pre-switch snapshot pos x/z, tmax x/z, ids 0/1, lod (the gated march's
-    rewind anchor; the dense march reads only the first six)."""
+    rewind anchor; the dense march reads only the first six).
+
+    With a live-ray ``index`` (int32 (Rk,)) only those rays roll: the visits
+    are (chunk, 13, Rk) and every other ray's state comes back untouched."""
+    if index is not None:
+        i = index.long()
+        sub, sub_alive, vis = _roll_chunk(
+            DDAState(*(_take(f, i) for f in dda)), _take(alive, i),
+            _take(dirs, i), lod_distances, far_clip, dims, chunk)
+        return (DDAState(*(_put(f, i, x) for f, x in zip(dda, sub))),
+                _put(alive, i, sub_alive), vis)
     X, Z = dims[0], dims[2]
     R = dda.pos.shape[0]
     nld = lod_distances.shape[0]
@@ -392,8 +458,14 @@ def _rasterize_step(rs: RasterState, cell, static: RayStatic, consts,
     the rasterizer groups whose tail cells are not the ray's.  (The XLA twin
     clears ``alive`` there instead; a ray reaches an invalid visit on the
     dense march only once the roll has retired it, so the raybuffer is the
-    same either way.)"""
-    ids, lod, valid, n_runs, color_off, cmin, cmax, runs_k = cell
+    same either way.)
+
+    In ARGB mode ``cell`` ends with the column's colors (R, MCC) and the
+    value written is the color itself (bit 31 cleared), looked up by its
+    index local to the column (``phase1_kernel.py:462-473``, ``:556-566``);
+    an index outside the record's MCC words gives 0, as the reference's
+    select chain does."""
+    ids, lod, valid, n_runs, color_off, cmin, cmax, runs_k, colors = cell
     world_max_y = consts["world_max_y"]
     cam_y = consts["cam_y"]
     cam_y_norm = consts["cam_y_norm"]
@@ -569,7 +641,10 @@ def _rasterize_step(rs: RasterState, cell, static: RayStatic, consts,
         iu = torch.where(torch.isnan(u), 0, to_i32(torch.floor(u)))
         color_local = torch.minimum(torch.clamp(iu, min=0),
                                     (length - 1)[:, None]) + cidx[:, None]
-        values = color_off[:, None] + color_local
+        if colors is None:
+            values = color_off[:, None] + color_local
+        else:
+            values = _inline_color(colors, color_local)
         rs, killed = _write_span(rs, rb_min2, rb_max2, values, overlap)
         rs = rs._replace(alive=rs.alive & ~killed)
 
@@ -593,19 +668,41 @@ def _rasterize_step(rs: RasterState, cell, static: RayStatic, consts,
         overlap2 = cap & (rb2_max >= rs.nfp_min) & (rb2_min <= rs.nfp_max)
         rs, rb2_min2, rb2_max2 = _reduce_pixel_horizon(rs, rb2_min, rb2_max,
                                                        overlap2)
-        cap_values = (color_off + sec_color_idx)[:, None]
+        if colors is None:
+            cap_values = (color_off + sec_color_idx)[:, None]
+        else:
+            cap_values = _inline_color(colors, sec_color_idx[:, None])
         rs, killed2 = _write_span(rs, rb2_min2, rb2_max2, cap_values, overlap2)
         rs = rs._replace(alive=rs.alive & ~killed2)
     return rs
 
 
+def _inline_color(colors, local):
+    """colors[r, local[r, j]] for (R, MCC) inline colors and (R, J) column-
+    local color indices; 0 where the index is outside the MCC words."""
+    mcc = colors.shape[1]
+    vals = torch.gather(colors, 1, local.clamp(0, mcc - 1).long())
+    return torch.where((local >= 0) & (local < mcc), vals, 0)
+
+
 def rasterize_cells(rs: RasterState, cells: CellFields, static: RayStatic,
-                    consts, iteration_direction: int) -> RasterState:
-    """``_rasterize_step`` over a chunk's C cells in visit order."""
+                    consts, iteration_direction: int,
+                    index=None) -> RasterState:
+    """``_rasterize_step`` over a chunk's C cells in visit order.  With a
+    live-ray ``index`` (int32 (Rk,)) the cells are (C, Rk) and belong to
+    those rays; every other ray's row and state come back untouched."""
+    if index is not None:
+        i = index.long()
+        sub = rasterize_cells(
+            RasterState(*(_take(f, i) for f in rs)), cells,
+            RayStatic(*(_take(f, i) for f in static)), consts,
+            iteration_direction)
+        return RasterState(*(_put(f, i, x) for f, x in zip(rs, sub)))
     max_runs = cells.runs.shape[-1]
     for c in range(cells.lod.shape[0]):
-        rs = _rasterize_step(rs, tuple(f[c] for f in cells), static, consts,
-                             iteration_direction, max_runs)
+        cell = tuple(None if f is None else f[c] for f in cells)
+        rs = _rasterize_step(rs, cell, static, consts, iteration_direction,
+                             max_runs)
     return rs
 
 
@@ -663,14 +760,15 @@ def chunk_cells(wa: WorldArrays, visits, iteration_direction: int) -> CellFields
     lodc = v_lod.clamp(0, 7)
     ci = _cell_index(wa, lodc, visits[:, 0] >> v_lod, visits[:, 1] >> v_lod)
     ci = torch.where(v_valid, ci, 0)
-    n_runs, color_off, cmin, cmax, runs = _fetch_columns(
+    n_runs, color_off, cmin, cmax, runs, colors = _fetch_columns(
         wa, ci, v_valid, iteration_direction)
     ids = visits[:, 2:4].permute(0, 2, 1).contiguous().view(torch.float32)
     # contiguous (C, R) fields: the rasterizer kernel reads them that way
     return CellFields(ids=ids, lod=v_lod.contiguous(), valid=v_valid,
                       n_runs=n_runs, color_off=color_off.contiguous(),
                       cmin=cmin.contiguous(), cmax=cmax.contiguous(),
-                      runs=runs.contiguous())
+                      runs=runs.contiguous(),
+                      colors=None if colors is None else colors.contiguous())
 
 
 def march_ops(kernels: bool):
@@ -683,24 +781,62 @@ def march_ops(kernels: bool):
     return roll_kernel.roll_chunk_ref, phase1_kernel.rasterize_chunk_ref
 
 
+# live-ray compaction since the last reset: index rebuilds, march chunks (or
+# gated iterations) and the ray slots they worked on (mean Rk = slots / chunks)
+compact_stats = {"rebuilds": 0, "chunks": 0, "ray_slots": 0}
+
+
+def live_index(mask, n: int):
+    """The ascending int32 (n,) indices of the ``n`` True entries of ``mask``
+    (R,), built without asking the device for the count (``torch.nonzero``
+    would): each live ray scatters its index to its rank, every dead ray to
+    the discarded slot n."""
+    R = mask.shape[0]
+    rank = torch.cumsum(mask, 0) - 1
+    dest = torch.where(mask, rank, n)
+    rays = torch.arange(R, dtype=torch.int32, device=mask.device)
+    return torch.empty(n + 1, dtype=torch.int32,
+                       device=mask.device).scatter_(0, dest, rays)[:n]
+
+
+def live_rays(march_alive, index, compact: bool):
+    """The march's one read from the device a chunk: (live count, index).
+    The live-ray index is rebuilt when the count has fallen to half of the
+    rays it holds, or less (the reference's halving, ``raymarch.py:1087``,
+    without its 1024-ray quantum); None stands for all R rays."""
+    n = int(march_alive.sum().item())
+    width = march_alive.shape[0] if index is None else index.shape[0]
+    if compact and 0 < n and 2 * n <= width:
+        index = live_index(march_alive, n)
+        width = n
+        compact_stats["rebuilds"] += 1
+    if n:
+        compact_stats["chunks"] += 1
+        compact_stats["ray_slots"] += width
+    return n, index
+
+
 def march(wa: WorldArrays, static: RayStatic, dda: DDAState, alive0,
           rs: RasterState, lod_distances, far_clip, dims, consts,
           iteration_direction: int, chunk: int, max_chunks: int,
-          kernels: bool = True) -> RasterState:
+          kernels: bool = True, compact: bool = True) -> RasterState:
     """Full dense phase-1 march (``raymarch.py:895``): per chunk, roll, fetch
-    and rasterize, until every ray is dead or ``max_chunks`` ran.  One
-    ``.item()`` liveness check per chunk."""
+    and rasterize the live rays, until every ray is dead or ``max_chunks``
+    ran.  One ``.item()`` per chunk: the live count (``live_rays``)."""
     roll, raster = march_ops(kernels)
     alive = alive0
+    index = None
     i = 0
     while i < max_chunks:
         march_alive = alive & rs.alive
-        if not bool(march_alive.any().item()):
+        n, index = live_rays(march_alive, index, compact)
+        if not n:
             break
         dda, alive, visits = roll(dda, march_alive, static.dirs, lod_distances,
-                                  far_clip, dims, chunk)
+                                  far_clip, dims, chunk, index=index)
         cells = chunk_cells(wa, visits, iteration_direction)
-        rs = raster(rs, cells, static, consts, iteration_direction)
+        rs = raster(rs, cells, static, consts, iteration_direction,
+                    index=index)
         i += 1
     return rs
 
@@ -738,13 +874,16 @@ class GatedGroup(NamedTuple):
 
 
 def gated_group(wa: WorldArrays, visits, rs: RasterState, consts,
-                iteration_direction: int, group_cells: int):
+                iteration_direction: int, group_cells: int, index=None):
     """Stages A and B of a gated iteration (``raymarch.py:1228-1333``): gate
     a rolled chunk's cells on the occupancy tiles and the frozen frustum
     window, retire rays whose window cleared the solid bounds, and pack the
     first ``group_cells`` gated cells of each ray.  Returns (rs with the
-    pre-kill applied, GatedGroup)."""
+    pre-kill applied, GatedGroup).  With a live-ray ``index`` the visits
+    and the group are those rays', (., Rk)."""
     C, R = visits.shape[0], visits.shape[2]
+    if index is not None:
+        index = index.long()
     GK = group_cells
     dev = visits.device
     v_lod = visits[:, 4]
@@ -785,9 +924,9 @@ def gated_group(wa: WorldArrays, visits, rs: RasterState, consts,
     # it, the rasterizer's window is the frozen-fdir one, so a tile whose
     # [cmin, cmax] misses it (with a margin) is a provable skip_col
     cam_y, wmy = consts["cam_y"], consts["world_max_y"]
-    fdmin = rs.fdir_min[None, :]
-    fdmax = rs.fdir_max[None, :]
-    fact0 = rs.f_active[None, :]
+    fdmin = _take(rs.fdir_min, index)[None, :]
+    fdmax = _take(rs.fdir_max, index)[None, :]
+    fact0 = _take(rs.f_active, index)[None, :]
     dt = torch.where(fdmax > 0, ids1, ids0)
     db = torch.where(fdmin < 0, ids1, ids0)
     new_max = cam_y + fdmax * dt
@@ -812,7 +951,8 @@ def gated_group(wa: WorldArrays, visits, rs: RasterState, consts,
                           & (new_max + margin < consts["solid_min_y"]))))
         kill_from = torch.cumsum(kill_pre.to(torch.int32), 0) > 0
         gate = gate & ~kill_from
-        rs = rs._replace(alive=rs.alive & ~kill_from[-1])
+        rs = rs._replace(alive=_put(
+            rs.alive, index, _take(rs.alive, index) & ~kill_from[-1]))
 
     # ---- stage B: pack the gated steps to a per-ray prefix, in step order;
     # the group's tail cells of rays with fewer than GK gated cells are not
@@ -824,23 +964,30 @@ def gated_group(wa: WorldArrays, visits, rs: RasterState, consts,
     count = rank[-1] + 1
     cap = count.clamp(max=GK)
     proc = torch.arange(GK, dtype=torch.int32, device=dev)[:, None] < cap
-    n_runs, color_off, cmin, cmax, runs = _fetch_columns(
+    n_runs, color_off, cmin, cmax, runs, colors = _fetch_columns(
         wa, packed[..., 0], proc, iteration_direction)
     cells = CellFields(
         ids=packed[..., 1:3].contiguous().view(torch.float32),
         lod=packed[..., 3].contiguous(), valid=proc, n_runs=n_runs,
         color_off=color_off.contiguous(), cmin=cmin.contiguous(),
-        cmax=cmax.contiguous(), runs=runs.contiguous())
+        cmax=cmax.contiguous(), runs=runs.contiguous(),
+        colors=None if colors is None else colors.contiguous())
     return rs, GatedGroup(cells, gate, rank, count, cap)
 
 
-def rewind(dda: DDAState, visits, rs: RasterState, g: GatedGroup):
+def rewind(dda: DDAState, visits, rs: RasterState, g: GatedGroup, index=None):
     """The busy-ray rewind (``raymarch.py:1547-1579``): a live ray with more
     gated cells than its group held gets the pre-switch snapshot of its first
     unprocessed gated cell, so the next iteration re-rolls from exactly there
-    (same DDA state, same float trajectory).  Returns (dda, rewound (R,))."""
+    (same DDA state, same float trajectory).  Returns (dda, rewound), the
+    rewound mask over the group's rays: (R,), or (Rk,) with a live-ray
+    ``index``."""
+    full = dda
+    if index is not None:
+        index = index.long()
+        dda = DDAState(*(_take(f, index) for f in dda))
     rwm = g.gate & (g.rank == g.cap)
-    needs = (g.count > g.cap) & rs.alive
+    needs = (g.count > g.cap) & _take(rs.alive, index)
 
     def rsum(f):  # exact: one nonzero summand per busy ray, as the reference
         return torch.where(rwm, f, torch.zeros_like(f)).sum(0, dtype=f.dtype)
@@ -855,13 +1002,15 @@ def rewind(dda: DDAState, visits, rs: RasterState, g: GatedGroup):
         tdelta=torch.ldexp(dda.tdelta, (lod_rw - dda.lod)[:, None]),
         stp=torch.sign(dda.stp) * (1 << lod_rw)[:, None],
         ids=torch.stack(f32[2:4], 1), lod=lod_rw)
-    return _select(needs, dda_rw, dda), needs
+    dda = _select(needs, dda_rw, dda)
+    return DDAState(*(_put(f, index, x) for f, x in zip(full, dda))), needs
 
 
 def march_gated(wa: WorldArrays, static: RayStatic, dda: DDAState, alive0,
                 rs: RasterState, lod_distances, far_clip, dims, consts,
                 iteration_direction: int, chunk: int, max_chunks: int,
-                group_cells: int, kernels: bool = True) -> RasterState:
+                group_cells: int, kernels: bool = True,
+                compact: bool = True) -> RasterState:
     """Full occupancy-gated phase-1 march (``phase1_pallas`` with
     ``occupancy=True``, one drain group, no block fetch, no lite records):
     per iteration roll ``chunk`` steps, rasterize the first ``group_cells``
@@ -869,22 +1018,31 @@ def march_gated(wa: WorldArrays, static: RayStatic, dda: DDAState, alive0,
     more (``rewind``), until every ray is dead or ``max_chunks`` iterations
     ran.  Every iteration advances a ray by at least one rasterized cell or
     ``chunk`` steps, so a budget of 3 * max_dim + 64 never truncates one
-    (``Renderer.march_params``).  Its raybuffer equals ``march``'s."""
+    (``Renderer.march_params``).  Its raybuffer equals ``march``'s.
+
+    The live-ray index is rebuilt at the top of an iteration, so after the
+    previous one's rewind: a rewound ray was rolled in that iteration, so it
+    is in the index that iteration used, and ``alive & rs.alive`` of a ray
+    outside the index never comes back."""
     roll, raster = march_ops(kernels)
     alive = alive0
     rewound = torch.zeros((), dtype=torch.int64, device=alive.device)
+    index = None
     i = 0
     while i < max_chunks:
         march_alive = alive & rs.alive
-        if not bool(march_alive.any().item()):
+        n, index = live_rays(march_alive, index, compact)
+        if not n:
             break
         dda, alive, visits = roll(dda, march_alive, static.dirs,
-                                  lod_distances, far_clip, dims, chunk)
+                                  lod_distances, far_clip, dims, chunk,
+                                  index=index)
         rs, g = gated_group(wa, visits, rs, consts, iteration_direction,
-                            group_cells)
-        rs = raster(rs, g.cells, static, consts, iteration_direction)
-        dda, needs = rewind(dda, visits, rs, g)
-        alive = alive | needs
+                            group_cells, index=index)
+        rs = raster(rs, g.cells, static, consts, iteration_direction,
+                    index=index)
+        dda, needs = rewind(dda, visits, rs, g, index=index)
+        alive = _or_rows(alive, index, needs)
         rewound += needs.sum()
         i += 1
     gated_stats["iterations"] += i
@@ -896,11 +1054,12 @@ def phase1(wa: WorldArrays, static: RayStatic, dda: DDAState, alive0,
            lod_distances, far_clip, world_max_y, cam_y,
            iteration_direction: int, chunk: int, max_chunks: int, dims,
            pixel_len: int, solid_min_y=None, solid_max_y=None,
-           kernels: bool = True, gated_cells: int = 0):
+           kernels: bool = True, gated_cells: int = 0, compact: bool = True):
     """Full phase 1 (``raymarch.py:961`` and ``:997``): the dense march, or
     with ``gated_cells`` > 0 the occupancy-gated march in groups of that many
-    cells, then the deferred skybox fill.  Returns the (R, pixel_len) int32
-    color-index raybuffer."""
+    cells, then the deferred skybox fill over all rays in their original
+    order.  Returns the (R, pixel_len) int32 raybuffer: color indices, or in
+    ARGB mode (``wa.max_col_colors`` > 0) final colors as int32 bits."""
     dev = static.dirs.device
     rs = init_raster_state(static, pixel_len)
     consts = raster_consts(world_max_y, cam_y, solid_min_y, solid_max_y, dev)
@@ -910,16 +1069,22 @@ def phase1(wa: WorldArrays, static: RayStatic, dda: DDAState, alive0,
     args = (wa, static, dda, alive0, rs, lod_distances, far, dims, consts,
             iteration_direction, chunk, max_chunks)
     if gated_cells:
-        rs = march_gated(*args, group_cells=gated_cells, kernels=kernels)
+        rs = march_gated(*args, group_cells=gated_cells, kernels=kernels,
+                         compact=compact)
     else:
-        rs = march(*args, kernels=kernels)
+        rs = march(*args, kernels=kernels, compact=compact)
     # deferred WriteSkybox (:699-716): unwritten pixels inside the range -> 0
     pix = torch.arange(pixel_len, dtype=torch.int32, device=dev)[None, :]
     in_range = (pix >= static.orig_min[:, None]) & (pix <= static.orig_max[:, None])
-    return torch.where((rs.raybuf < 0) & in_range, 0, rs.raybuf)
-
-
-MAGENTA_I32 = int(np.uint32(0xFFFF1493).view(np.int32))
+    rb = rs.raybuf
+    if wa.max_col_colors:
+        # ARGB mode (``raymarch.py:1611-1618``): written texels get the alpha
+        # MSB back; unwritten in range -> the skybox color, out of range ->
+        # magenta
+        return torch.where(
+            rb < 0, torch.where(in_range, wa.colors[0], MAGENTA_I32),
+            rb | I32_MIN)
+    return torch.where((rb < 0) & in_range, 0, rb)
 
 
 def resolve_colors(raybuf_idx, colors):

@@ -3,7 +3,8 @@ their originals: the same inputs give the same arrays, bit for bit.
 
 The port imports nothing of ``cpuvox_tpu``; it carries its own copies of
 ``config``, ``models/procedural``, ``render/{camera,segments,device,oracle}``,
-``utils/colors``, ``world/{rle,save}`` and ``bench/path``.  Each case below
+``utils/colors``, ``world/{rle,save}``, ``bench/path`` and
+``render/device_init.build_frame_params``.  Each case below
 runs one piece of a copy and of its original on the same inputs.
 """
 import dataclasses
@@ -46,6 +47,11 @@ def case_config():
     jax_fields = {f.name: f.default for f in dataclasses.fields(Jax)}
     for f in dataclasses.fields(Port):
         assert f.name in jax_fields, f.name
+        if f.name == "host_init":
+            # the one default that differs: on the H100 the numpy host init
+            # is faster than the device init (cpuvox_tpu_torch/config.py)
+            assert f.default is True and jax_fields[f.name] is False
+            continue
         assert f.default == jax_fields[f.name], f.name
     assert Port().screen == Jax().screen
     assert Port().far_clip_multiplier == Jax().far_clip_multiplier
@@ -60,6 +66,7 @@ def _device_world(lods_fn):
     for f in dataclasses.fields(a):
         assert_same(getattr(a, f.name), getattr(b, f.name), f.name)
     assert a.rec_fwd is not None and a.occ_tiles is not None
+    assert a.col_rec is None and a.max_col_colors == 0
     for k in ("REC_META", "INLINE_MAX_RUNS", "OCC_TILE_X", "OCC_TILE_Z",
               "OCC_ROW"):
         assert getattr(td, k) == getattr(jd, k), k
@@ -106,6 +113,41 @@ def case_camera_and_segments():
     for args in CAMERAS:
         assert_same(_frame_geometry(tc, ts, *args),
                     _frame_geometry(jc, js, *args), str(args))
+
+
+def case_device_split_layout():
+    """More than 60 runs in a column: the split layout's meta records and
+    flat run arrays."""
+    from cpuvox_tpu.render import device as jd
+    from cpuvox_tpu_torch.render import device as td
+
+    from test_torch_frame import split_layout_world
+
+    lods = [split_layout_world()] * 6
+    a, b = td.build_device_world(lods), jd.build_device_world(lods)
+    for f in dataclasses.fields(a):
+        assert_same(getattr(a, f.name), getattr(b, f.name), f.name)
+    assert a.rec_fwd is None and a.col_rec.shape[1] == td.REC == jd.REC
+    assert a.runs.shape == a.runs_rev.shape and a.max_runs > 60
+
+
+def case_frame_params():
+    """``device_init.build_frame_params``: the per-frame table of the device
+    ray init."""
+    from cpuvox_tpu.render import camera as jc, device_init as jdi
+    from cpuvox_tpu.render import segments as js
+    from cpuvox_tpu_torch.render import camera as tc, device_init as tdi
+    from cpuvox_tpu_torch.render import segments as ts
+
+    assert tdi.FrameParams._fields == jdi.FrameParams._fields
+    for args in CAMERAS:
+        _, _, _, cd, _, segs, ctxs, *_ = _frame_geometry(tc, ts, *args)
+        _, _, _, jcd, _, jsegs, jctxs, *_ = _frame_geometry(jc, js, *args)
+        a = tdi.build_frame_params(cd, segs, ctxs)
+        b = jdi.build_frame_params(jcd, jsegs, jctxs)
+        for name, x, y in zip(a._fields, a, b):
+            assert_same(np.atleast_1d(x), np.atleast_1d(np.asarray(y)),
+                        f"{args} {name}")
 
 
 def case_benchmark_path():

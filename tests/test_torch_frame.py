@@ -157,8 +157,7 @@ def test_port_never_imports_jax():
     assert r.stdout.startswith("ok"), r.stdout
 
 
-@pytest.mark.parametrize("kw", [{"argb_records": True},
-                                {"block_fetch": "on"},
+@pytest.mark.parametrize("kw", [{"block_fetch": "on"},
                                 {"lite_records": "auto"},
                                 {"drain_groups": 4}])
 def test_unported_settings_raise(kw):
@@ -166,15 +165,36 @@ def test_unported_settings_raise(kw):
         Renderer.create(lods_for("random"), config(**kw), device="cpu")
 
 
-def test_split_record_layout_raises():
-    """Columns with more than 60 runs use the split record layout."""
+def split_layout_world():
+    """One column of alternating voxel and air: about 128 runs, over the 60
+    an inline record holds, so the device world takes the split layout."""
     dims = (16, 256, 16)
-    ys = np.arange(0, 256, 2)  # alternating voxel/air: ~128 runs
+    ys = np.arange(0, 256, 2)
     xz = np.full(ys.shape[0], 5 * dims[2] + 7)
-    rgb = tuple(np.full(xz.shape[0], v, np.uint8) for v in (200, 90, 30))
-    w = rle.build_lod_from_voxels(dims, 0, xz, ys, rgb)
-    with pytest.raises(NotImplementedError):
-        Renderer.create([w] * 6, config(), device="cpu")
+    rgb = tuple((ys * (3 + i) % 251).astype(np.uint8) for i in range(3))
+    return rle.build_lod_from_voxels(dims, 0, xz, ys, rgb)
+
+
+@pytest.mark.parametrize("pos,pitch,yaw,direction", [
+    ((8.0, 128.0, -6.0), 20.0, 15.0, 1), ((8.0, 40.0, -6.0), -30.0, 10.0, -1)])
+def test_split_record_layout_matches_jax(pos, pitch, yaw, direction):
+    """Columns with more than 60 runs use the split record layout: an 8-int
+    meta row, then the runs from the flat array (the reversed one going up).
+    The frame equals the JAX Renderer's, with the dense and the gated march,
+    and ARGB mode stays off (its colors ride only in inline records)."""
+    lods = [split_layout_world()] * 6
+    cam = cm.Camera(position=pos, pitch_deg=pitch, yaw_deg=yaw, screen=SCREEN)
+    want = jax_reference(lods, cam)
+    assert want[1][5].inverse_element_iteration_direction == (direction < 0)
+    for kw in ({"occupancy_gate": "off"}, {"occupancy_gate": "on"},
+               {"argb_records": True}):
+        r = Renderer.create(lods, config(**kw), device="cpu")
+        dw = r.device_world
+        assert dw.max_runs > 60 and dw.rec_fwd is None and not r.argb_on
+        assert r._wa.col_rec.shape == (dw.col_rec.shape[0], 8)
+        got = r.render(cam, return_raybuffers=True)
+        assert_frames_equal(f"split layout {kw}", got, want)
+    assert (want[0] != want[0][0, 0]).any(), "nothing was drawn"
 
 
 def test_flythrough_refuses_cpu():

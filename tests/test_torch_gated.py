@@ -305,13 +305,18 @@ def test_gated_raster_kernel_matches_plain_on_cuda(cuda):
     for cam in flythrough_cameras(r.device_world.dims, r.render_wh):
         cap = capture(r, cam, k=3)
         assert cap.gated
-        assert cap.cells.runs.shape == (16, cap.rs.raybuf.shape[0], 29)
+        # the march has compacted its rays: the group is the live rays'
+        rays = cap.index.shape[0]
+        assert rays <= cap.rs.raybuf.shape[0] // 2
+        assert cap.cells.runs.shape == (16, rays, 29)
         directions.add(cap.frame.iteration_direction)
         args = (cap.cells, cap.frame.static, cap.consts,
                 cap.frame.iteration_direction)
-        got = phase1_kernel.rasterize_chunk(clone(cap.rs), *args)
+        got = phase1_kernel.rasterize_chunk(clone(cap.rs), *args,
+                                            index=cap.index)
         torch.cuda.synchronize()
-        want = phase1_kernel.rasterize_chunk_ref(clone(cap.rs), *args)
+        want = phase1_kernel.rasterize_chunk_ref(clone(cap.rs), *args,
+                                                 index=cap.index)
         for k, x, y in zip(trm.RasterState._fields, got, want):
             if x.dtype == torch.float32:
                 x, y = x.view(torch.int32), y.view(torch.int32)
@@ -333,9 +338,11 @@ def test_roll_kernel_matches_plain_at_chunk_128_on_cuda(cuda):
     assert cap.chunk == 128
     rest = (cap.frame.static.dirs, cap.lod_distances, cap.far,
             r.device_world.dims, cap.chunk)
-    got = roll_kernel.roll_chunk(clone(cap.dda), cap.alive.clone(), *rest)
+    got = roll_kernel.roll_chunk(clone(cap.dda), cap.alive.clone(), *rest,
+                                 index=cap.index)
     torch.cuda.synchronize()
-    want = roll_kernel.roll_chunk_ref(clone(cap.dda), cap.alive.clone(), *rest)
+    want = roll_kernel.roll_chunk_ref(clone(cap.dda), cap.alive.clone(), *rest,
+                                      index=cap.index)
     for x, y in zip([*got[0], got[1], got[2]], [*want[0], want[1], want[2]]):
         if x.dtype == torch.float32:
             x, y = x.view(torch.int32), y.view(torch.int32)
