@@ -18,28 +18,31 @@ non-zero (no phase catches its own failure):
    the setup time both ways; each kernel against its plain torch version on
    the card, bit-exact (tolerance 0, f32 compared as bits): the roll on an
    adversarial state and on a 1080p frame's mid-march state, the rasterizer
-   on one chunk of that frame (raybuffer and the 8 state fields), both with
-   the live-ray index the march holds there (under half the ray slots) and
-   at full width, the sample on that frame's reprojection maps; then a 64^3
+   on one chunk of that frame (raybuffer and the 8 state fields: the group
+   kernel on the roll's visits, and the previous one-thread-a-ray kernel on
+   the cells torch fetches, each against the plain version), both with the
+   live-ray index the march holds there (under half the ray slots) and at
+   full width, the sample on that frame's reprojection maps; then a 64^3
    random world at 160x120 against the numpy oracle; one 320x180 frame
    through the kernels, the plain path, the kernels without compaction and
    the kernels with device ray init (bit-equal); the 1920x1080 flythrough
    (24 frames) with launch counts, index rebuilds and mean rays a chunk, a
-   magenta check, fps and frame p50;
+   magenta check, fps and frame p50, and no torch column fetch on the way;
 4. terrain2048 in ARGB mode (``argb_records=True``, with
    ``host_init=False``: device ray init): the records' shape and
-   ``max_col_colors``; the rasterizer with MCC 13 on a 1080p chunk against
-   its plain version; one 320x180 frame three ways (ARGB kernels, ARGB
-   plain, index-mode kernels: equal screens); the 1920x1080 flythrough (24
-   frames) with 0 magenta; the same frames through both modes in turns
+   ``max_col_colors``; both rasterizers with MCC 13 on a 1080p chunk
+   against their plain version; one 320x180 frame three ways (ARGB
+   kernels, ARGB plain, index-mode kernels: equal screens); the 1920x1080
+   flythrough (24 frames) with 0 magenta; the same frames through both
+   modes in turns
    (each mode's frame p50), and three of them against index mode's screen;
-5. the split record layout: a small world of about 128 runs a column, the
-   rasterizer at that MAXR against its plain version, one frame against the
-   plain path;
+5. the split record layout: a small world of about 128 runs a column, both
+   rasterizers at that MAXR against their plain version, one frame against
+   the plain path;
 6. layered2048, the occupancy-gated march (``bench.py``'s deep, mostly
    empty headline scene): (a) the device world, whose gate must resolve on,
    and device against host init at its dims; (b) the roll at chunk 128 and
-   the rasterizer on a packed group of 16 gated cells at MAXR 29, mid-march,
+   both rasterizers on a packed group of 16 gated cells at MAXR 29, mid-march,
    with the live-ray index and at full width, against their plain versions,
    in both iteration directions; (c) one 320x180 frame five ways, equal
    raybuffers and screens: gated kernels, gated plain versions, dense
@@ -49,7 +52,9 @@ non-zero (no phase catches its own failure):
 7. each kernel's time against its plain version, its bound and, where one
    PyTorch call computes the same function, that call's time, at each
    path's shapes: per call by CUDA events around one Python call, and the
-   device's own time a launch (calls queued back to back behind a wait).
+   device's own time a launch (calls queued back to back behind a wait);
+   for the rasterizer also the previous kernel design and the torch column
+   fetch that feeds it, on the same inputs.
 
 The three flythrough Renderers are created with ``compact=True`` (the march
 on a live-ray index; the Renderer's default is the full-width march, which
@@ -77,7 +82,7 @@ N_FRAMES = 24
 KERNELS = [  # name, source, the TPU kernel it replaces
     ("roll_chunk", "cpuvox_tpu_torch/csrc/roll.cu",
      "cpuvox_tpu/ops/roll_kernel.py:146"),
-    ("rasterize_chunk", "cpuvox_tpu_torch/csrc/rasterize.cu",
+    ("rasterize_visits", "cpuvox_tpu_torch/csrc/rasterize.cu",
      "cpuvox_tpu/ops/phase1_kernel.py:715"),
     ("sample_raybuffer", "cpuvox_tpu_torch/csrc/sample.cu",
      "cpuvox_tpu/ops/reproject_kernel.py:64"),
@@ -147,18 +152,24 @@ def roll_both_cap(cap, dims):
                      index=cap.index)
 
 
-def raster_both(cap):
-    """The rasterizer kernel and its plain version on copies of a captured
-    state; returns (kernel result, plain result)."""
+def raster_both(cap, stats: dict):
+    """The group rasterizer on the capture's cells (visits or a packed
+    group) and the previous design on the same cells fetched by torch, each
+    against the plain version on copies of the captured state; returns (the
+    plain result, texels it wrote)."""
     from cpuvox_tpu_torch.bench.capture import clone
     from cpuvox_tpu_torch.ops import phase1_kernel
 
-    args = (cap.cells, cap.frame.static, cap.consts,
-            cap.frame.iteration_direction)
-    got = phase1_kernel.rasterize_chunk(clone(cap.rs), *args, index=cap.index)
-    want = phase1_kernel.rasterize_chunk_ref(clone(cap.rs), *args,
-                                             index=cap.index)
-    return got, want
+    args = (cap.frame.static, cap.consts, cap.frame.iteration_direction)
+    want = phase1_kernel.rasterize_visits_ref(clone(cap.rs), cap.wa, cap.src,
+                                              *args, index=cap.index)
+    got = phase1_kernel.rasterize_visits(clone(cap.rs), cap.wa, cap.src,
+                                         *args, index=cap.index)
+    compare("rasterize_visits", got, want, stats)
+    old = phase1_kernel.rasterize_chunk(clone(cap.rs), cap.cells, *args,
+                                        index=cap.index)
+    compare("rasterize_chunk", old, want, stats)
+    return want, int((want.raybuf >= 0).sum() - (cap.rs.raybuf >= 0).sum())
 
 
 def capture_compacted(renderer, cam, k: int):
@@ -403,9 +414,7 @@ def check_split_layout(device, stats: dict) -> None:
     cam = cm.Camera(position=(16.0, 150.0, -10.0), pitch_deg=20.0,
                     yaw_deg=10.0, screen=SMALL_WH)
     cap = capture(r, cam, k=1)
-    got, want = raster_both(cap)
-    compare("rasterize_chunk", got, want, stats)
-    written = int((want.raybuf >= 0).sum() - (cap.rs.raybuf >= 0).sum())
+    _want, written = raster_both(cap, stats)
     if not written:
         raise AssertionError("[split] the captured chunk wrote no texel")
     plain = dataclasses.replace(r, config=dataclasses.replace(
@@ -415,7 +424,8 @@ def check_split_layout(device, stats: dict) -> None:
     compare("frame_split", [a, rb_a], [b, rb_b], {})
     log(f"[split] split record layout (max_runs {dw.max_runs}, meta records "
         f"{tuple(dw.col_rec.shape)}, {dw.runs.shape[0]} run words): "
-        f"rasterize_chunk == plain at MAXR={cap.cells.runs.shape[-1]} on "
+        f"rasterize_visits == rasterize_chunk == plain at "
+        f"MAXR={cap.cells.runs.shape[-1]} on "
         f"{rays_of(cap)} ({written} texels written); "
         f"{SMALL_WH[0]}x{SMALL_WH[1]} frame through the kernels == plain "
         f"path, {int((rb_a > 0).sum())} texels drawn, 0 differ")
@@ -447,13 +457,12 @@ def check_terrain_kernels(renderer, stats: dict, tag="terrain"):
             f"{depth + 1}, "
             f"on {rays_of(cap)} (C={cap.chunk}, {int(cap.alive.sum())} rays "
             f"marching): visits, 6 DDA fields, alive")
-        got, want = raster_both(cap)
-        compare("rasterize_chunk", got, want, stats)
-        written = int((want.raybuf >= 0).sum() - (cap.rs.raybuf >= 0).sum())
+        want, written = raster_both(cap, stats)
         if not written:
             raise AssertionError(f"[{tag}] the captured chunk wrote no texel")
         mcc = 0 if cap.cells.colors is None else cap.cells.colors.shape[-1]
-        log(f"[{tag}] rasterize_chunk == plain on that chunk, on "
+        log(f"[{tag}] rasterize_visits == rasterize_chunk == plain on that "
+            f"chunk, on "
             f"{rays_of(cap)}: raybuffer {tuple(want.raybuf.shape)} + 8 state "
             f"fields, {written} texels written, "
             f"MAXR={cap.cells.runs.shape[-1]}, MCC={mcc}")
@@ -583,13 +592,12 @@ def check_gated_kernels(renderer, stats: dict):
         if not int(cap.cells.valid.sum()):
             raise AssertionError(f"direction {d:+d}: the captured group holds "
                                  "no gated cell")
-        got, want = raster_both(cap)
-        compare("rasterize_chunk", got, want, stats)
-        written = int((want.raybuf >= 0).sum() - (cap.rs.raybuf >= 0).sum())
+        _want, written = raster_both(cap, stats)
         GK, _rk, maxr = cap.cells.runs.shape
         log(f"[layered] direction {d:+d} (path t={t}), on {rays_of(cap)}: "
             f"roll_chunk == plain at C={cap.chunk} ({int(cap.alive.sum())} "
-            f"rays marching); rasterize_chunk == plain on a gated group "
+            f"rays marching); rasterize_visits == rasterize_chunk == plain "
+            f"on a gated group "
             f"(GK={GK}, MAXR={maxr}, {int(cap.cells.valid.sum())} gated "
             f"cells, {written} texels written): raybuffer + 8 state fields, "
             f"0 elements differ")
@@ -602,7 +610,8 @@ def check_gated_kernels(renderer, stats: dict):
 
 def flythrough(renderer, scene: str, card: str, gated: bool):
     """A path's 1080p flythrough with the launch counts set to 0 just before
-    it and read just after it."""
+    it and read just after it, and every torch column fetch counted (the
+    march through the kernels must make none)."""
     from cpuvox_tpu_torch.bench.harness import run_flythrough
     from cpuvox_tpu_torch.ops import phase1_kernel, reproject_kernel
     from cpuvox_tpu_torch.ops import roll_kernel
@@ -611,12 +620,28 @@ def flythrough(renderer, scene: str, card: str, gated: bool):
     counters = (roll_kernel, phase1_kernel, reproject_kernel)
     for m in counters:
         m.launches = 0
+    phase1_kernel.chunk_launches = 0
     raymarch.gated_stats.update(iterations=0, rewinds=0)
     raymarch.compact_stats.update(rebuilds=0, chunks=0, ray_slots=0)
-    metrics = run_flythrough(renderer, n_frames=N_FRAMES, log=log)
+    fetch = raymarch._fetch_columns
+    fetches = []
+
+    def counted_fetch(*args, **kw):
+        fetches.append(1)
+        return fetch(*args, **kw)
+
+    raymarch._fetch_columns = counted_fetch
+    try:
+        metrics = run_flythrough(renderer, n_frames=N_FRAMES, log=log)
+    finally:
+        raymarch._fetch_columns = fetch
     launches = [m.launches for m in counters]
     gstats = dict(raymarch.gated_stats)
     cstats = dict(raymarch.compact_stats)
+    if fetches or phase1_kernel.chunk_launches:
+        raise AssertionError(f"{scene}: the march fetched records in torch "
+                             f"{len(fetches)} times and launched the previous "
+                             f"rasterizer {phase1_kernel.chunk_launches} times")
     if not cstats["rebuilds"]:
         raise AssertionError(f"{scene}: the march never compacted its rays")
     if metrics["magenta_pixels"]:
@@ -638,9 +663,9 @@ def flythrough(renderer, scene: str, card: str, gated: bool):
         f"on {card}: fps {metrics['fps']:.3f}, frame p50 "
         f"{metrics['frame_ms_p50']:.1f} ms (device span p50 "
         f"{metrics['frame_gpu_ms_p50']:.1f} ms), "
-        f"{metrics['ray_columns_per_sec']:.0f} ray columns/s, 0 magenta; "
-        f"launches roll {launches[0]}, rasterize {launches[1]}, "
-        f"sample {launches[2]}{extra}")
+        f"{metrics['ray_columns_per_sec']:.0f} ray columns/s, 0 magenta, 0 "
+        f"torch column fetches; launches roll {launches[0]}, rasterize "
+        f"{launches[1]}, sample {launches[2]}{extra}")
     return dict(zip([k[0] for k in KERNELS], launches)), metrics, gstats
 
 
@@ -685,24 +710,36 @@ def roll_work(cap):
 
 
 def raster_work(cap, written: int):
-    """Bytes and operations one rasterize call needs on this data: every
-    slot's valid flag; each valid cell's fields (ids, lod, n_runs, color
-    offset, cmin, cmax) and its n_runs run words; the static planes; the 8
-    state fields read and written; each texel it writes; in ARGB mode one
-    color word read for each texel written (the kernel loads a cell's color
-    word only where it writes one, so the MCC words of a valid cell are not
-    all needed); the live-ray index.  R is the rays the call works on.
-    About 200 operations a valid cell, 30 a run of a valid cell and 10 a
-    texel."""
-    cells = cap.cells
+    """Bytes and operations one call of the group rasterizer needs on this
+    data: each slot's cell input (the six visit fields the kernel reads, or
+    a packed row and its proc flag); each valid cell's record words as
+    stored (the meta words, then n_runs run words, two to a word where the
+    runs are 16-bit packed); the static planes; the 8 state fields read and
+    written; each texel it writes; in ARGB mode one color word read for each
+    texel written (the kernel loads a cell's color word only where it writes
+    one); the live-ray index.  R is the rays the call works on.  About 200
+    operations a valid cell, 30 a run of a valid cell and 10 a texel."""
+    from cpuvox_tpu_torch.render import device as world_device
+    from cpuvox_tpu_torch.render.raymarch import PackedCells
+
+    cells, wa = cap.cells, cap.wa
     C, R, _maxr = cells.runs.shape
     state = R * (6 * 4 + 2)
+    slots = C * R * (17 if isinstance(cap.src, PackedCells) else 24)
+    n_runs = torch.where(cells.valid, cells.n_runs, 0)
     valid = int(cells.valid.sum())
-    runs = int(torch.where(cells.valid, cells.n_runs, 0).sum())
+    runs = int(n_runs.sum())
+    if wa.rec_fwd is None:  # split: 5 meta words, int32 runs
+        meta, run_words = 5, runs
+    else:
+        meta = world_device.REC_META
+        packed = world_device.packed_run_words(
+            wa.max_runs, wa.max_col_colors) != wa.max_runs
+        run_words = int(((n_runs + 1) // 2).sum()) if packed else runs
     color_reads = 0 if cells.colors is None else 4 * written
     index = 0 if cap.index is None else 4 * R
-    return (C * R + valid * (8 + 5 * 4) + 4 * runs + R * 36
-            + 2 * state + index + 4 * written + color_reads,
+    return (slots + 4 * (valid * meta + run_words) + R * 36 + 2 * state
+            + index + 4 * written + color_reads,
             200 * valid + 30 * runs + 10 * written)
 
 
@@ -747,18 +784,23 @@ def device_ms(fn, setup, reps: int) -> float:
 def time_kernels(caps: dict) -> dict:
     """Each kernel's time at a path's shapes: kernel (per Python call by
     CUDA events, and the device's own time a launch, ``device_ms``), plain
-    version, bound and the one-call PyTorch equivalent where there is one."""
+    version, bound and the one-call PyTorch equivalent where there is one.
+    For the rasterizer also, on the same inputs, the time of the previous
+    kernel design (``rasterize_chunk``), of the torch column fetch that
+    feeds it (``raymarch.fetch_cells``), and of the two as the march ran
+    them."""
     from cpuvox_tpu_torch.bench.capture import clone
     from cpuvox_tpu_torch.ops import phase1_kernel, reproject_kernel
     from cpuvox_tpu_torch.ops import roll_kernel
+    from cpuvox_tpu_torch.render import raymarch
 
     rcap = caps["roll"]
     roll_rest = (rcap.frame.static.dirs, rcap.lod_distances, rcap.far,
                  caps["dims"], rcap.chunk)
     roll_kw = {"index": rcap.index}
     xcap, written = caps["raster"]
-    rargs = (xcap.cells, xcap.frame.static, xcap.consts,
-             xcap.frame.iteration_direction)
+    direction = xcap.frame.iteration_direction
+    rargs = (xcap.frame.static, xcap.consts, direction)
     raster_kw = {"index": xcap.index}
     raybuf, maps = caps["sample"]
     maps_long = [(ri.long(), mask != 0) for ri, mask in maps]
@@ -775,11 +817,11 @@ def time_kernels(caps: dict) -> dict:
              lambda a: roll_kernel.roll_chunk_ref(*a, *roll_rest, **roll_kw),
              None, lambda: (clone(rcap.dda), rcap.alive.clone()),
              (20, plain_reps), roll_work(rcap)),
-            ("rasterize_chunk",
-             lambda rs: phase1_kernel.rasterize_chunk(rs, *rargs,
-                                                      **raster_kw),
-             lambda rs: phase1_kernel.rasterize_chunk_ref(rs, *rargs,
-                                                          **raster_kw), None,
+            ("rasterize_visits",
+             lambda rs: phase1_kernel.rasterize_visits(
+                 rs, xcap.wa, xcap.src, *rargs, **raster_kw),
+             lambda rs: phase1_kernel.rasterize_visits_ref(
+                 rs, xcap.wa, xcap.src, *rargs, **raster_kw), None,
              lambda: clone(xcap.rs), (10, 1), raster_work(xcap, written)),
             ("sample_raybuffer",
              lambda _: [reproject_kernel.sample_raybuffer(raybuf, *m)
@@ -802,6 +844,31 @@ def time_kernels(caps: dict) -> dict:
                               rays_worked(xcap)),
                      "bound_ms": b_ms, "bound_by": b_by,
                      "bytes": int(work[0]), "operations": int(work[1])}
+
+    # the previous design on the same inputs: its kernel on the fetched
+    # cells, the fetch alone, and the two as the march ran them
+    def old_kernel(rs):
+        phase1_kernel.rasterize_chunk(rs, xcap.cells, *rargs, **raster_kw)
+
+    def fetch(_):
+        raymarch.fetch_cells(xcap.wa, xcap.src, direction)
+
+    def old_path(rs):
+        phase1_kernel.rasterize_chunk(
+            rs, raymarch.fetch_cells(xcap.wa, xcap.src, direction), *rargs,
+            **raster_kw)
+
+    prev = {"name": "rasterize_chunk"}
+    for key, fn, setup in (("kernel", old_kernel, lambda: clone(xcap.rs)),
+                           ("fetch", fetch, lambda: None),
+                           ("kernel_and_fetch", old_path,
+                            lambda: clone(xcap.rs))):
+        time_ms(fn, 2, setup)  # warm
+        prev[key + "_ms"] = time_ms(fn, 10, setup)
+        prev[key + "_device_ms"] = device_ms(fn, setup, 10)
+    prev["device_ratio"] = (out["rasterize_visits"]["device_ms"]
+                            / prev["kernel_and_fetch_device_ms"])
+    out["rasterize_visits"]["previous_design"] = prev
     return out
 
 
@@ -963,6 +1030,19 @@ def main() -> int:
                 f"({t['bound_by']}: {t['bytes']} B, {t['operations']} ops), "
                 f"library {lib_txt}; {stats[kname]['mismatches']} mismatches "
                 f"against the plain version, tolerance 0 ({card})")
+            prev = t.get("previous_design")
+            if prev:
+                log(f"[time] {kname} at {path}'s shapes, the previous design "
+                    f"on the same inputs: rasterize_chunk "
+                    f"{prev['kernel_device_ms']:.4f} ms + torch column fetch "
+                    f"{prev['fetch_device_ms']:.4f} ms on the device "
+                    f"(as the march ran them "
+                    f"{prev['kernel_and_fetch_device_ms']:.4f} ms on the "
+                    f"device, {prev['kernel_and_fetch_ms']:.4f} ms a call): "
+                    f"the group kernel's {t['device_ms']:.4f} ms is "
+                    f"{prev['device_ratio']:.4f} of it; rasterize_chunk "
+                    f"{stats['rasterize_chunk']['mismatches']} mismatches "
+                    f"against the plain version, tolerance 0 ({card})")
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces, "launches": l_launches[kname],

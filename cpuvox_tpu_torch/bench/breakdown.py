@@ -28,14 +28,18 @@ path, on one card:
    the union of those intervals; the busy share is that over pass 2's wall
    (the profiler slows the host, so its own wall is printed but not used);
 5. the phase-1 march alone under ``torch.profiler``, frame setups made
-   beforehand: device activities per chunk or gated iteration (each is one
-   launch from the host), and the march's device busy time over pass 1's
+   beforehand: device activities per chunk of the dense march or per gated
+   iteration (each is one launch from the host; one rasterize launch a
+   chunk or iteration), and the march's device busy time over pass 1's
    march time.
 
 Device time by name is summed from the same activities: each kernel counts
 once (``key_averages``' "CUDA total" column counts a kernel under its aten op
-too); for the port's three kernels the device time a launch is printed.  The
-last line of stdout is one JSON object with every number.
+too); for the port's three kernels the device time a launch is printed (the
+rasterizer is the group kernel ``rasterize_visits_kernel``, which reads the
+column records itself: the march runs no torch record gather and no unpack
+``cumsum``).  The last line of stdout is one JSON object with every
+number.
 """
 from __future__ import annotations
 
@@ -207,7 +211,7 @@ def main(argv=None) -> int:
     for n, (ms, k) in top:
         print(f"  {ms:10.3f} ms {ms / dev_sum_ms:7.2%} {k:6d}x  {n[:90]}")
     per_launch = {}
-    for short in ("roll_chunk_kernel", "rasterize_chunk_kernel",
+    for short in ("roll_chunk_kernel", "rasterize_visits_kernel",
                   "sample_raybuffer_kernel"):
         ms, k = map(sum, zip(*([v for n, v in by_name.items() if short in n]
                                or [[0.0, 0]])))
@@ -226,8 +230,9 @@ def main(argv=None) -> int:
     iters = phase1_kernel.launches - n0
     march_dev = device_activities(prof)
     march_busy_ms = union_us((s, e) for _n, s, e in march_dev) / 1e3
+    unit = "gated iteration" if renderer.occupancy_on else "chunk"
     print(f"march alone: {len(march_dev)} device activities over {iters} "
-          f"chunks -> {len(march_dev) / iters:.1f} per chunk; device busy "
+          f"{unit}s -> {len(march_dev) / iters:.1f} per {unit}; device busy "
           f"{march_busy_ms:.3f} ms against {tot[1]:.3f} ms of march (pass 1) "
           f"-> march busy share {march_busy_ms / tot[1]:.4f}")
     print(json.dumps({

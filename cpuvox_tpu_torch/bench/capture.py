@@ -3,9 +3,10 @@ their plain versions at the shapes and on the data of a real frame.
 
 ``capture(renderer, cam, k)`` runs the first ``k`` iterations of the
 renderer's own march (dense or occupancy-gated, as ``occupancy_on``
-resolves), then rolls the next one and builds the cells its rasterize call
-would get: the chunk's visited cells on the dense march, the packed group
-of gated cells on the gated march.  Unless ``compact`` is False the march
+resolves), then rolls the next one and keeps what its rasterize call gets: the
+chunk's visits on the dense march, the packed group of gated cells on the
+gated march (``src``), and the same cells with their column records fetched
+by torch (``cells``), the input of the previous kernel design.  Unless ``compact`` is False the march
 compacts its live rays as a Renderer created with ``compact=True`` does, so
 a capture deep enough into a frame holds the live-ray index its kernels are
 given.  ``chip_smoke.py`` and the ``cuda`` tests use
@@ -32,7 +33,9 @@ class Capture:
     far: float
     dda: rm.DDAState  # the DDA state before the next roll
     alive: torch.Tensor  # march-alive before the next roll
-    cells: rm.CellFields  # the next rasterize call's cells
+    src: object  # the next rasterize call's cells: visits or PackedCells
+    cells: rm.CellFields  # ``src`` with the column records fetched
+    wa: rm.WorldArrays  # the world tables the rasterize call reads
     chunk: int
     gated: bool
     index: torch.Tensor | None = None  # the live-ray index of the next calls
@@ -45,7 +48,7 @@ def clone(nt):
 
 def capture(renderer, cam, k: int, compact: bool = True) -> Capture:
     """March ``k`` iterations of one frame through the kernels' wrappers,
-    then roll the next and build its cells, with the same steps as
+    then roll the next and take its cells, with the same steps as
     ``raymarch.march`` / ``raymarch.march_gated``."""
     f = renderer.frame_setup(cam)
     dev = renderer.device
@@ -69,17 +72,17 @@ def capture(renderer, cam, k: int, compact: bool = True) -> Capture:
         before = clone(dda), alive.clone()
         dda, alive, visits = roll(dda, alive, f.static.dirs, ld, far, dims,
                                   chunk, index=index)
+        src = visits
         if gk:
-            rs, g = rm.gated_group(renderer._wa, visits, rs, consts,
-                                   f.iteration_direction, gk, index=index)
-            cells = g.cells
-        else:
-            cells = rm.chunk_cells(renderer._wa, visits, f.iteration_direction)
+            rs, g = rm.gated_group(renderer._wa, visits, rs, consts, gk,
+                                   index=index)
+            src = g.cells
         if i < k:
-            rs = raster(rs, cells, f.static, consts, f.iteration_direction,
-                        index=index)
+            rs = raster(rs, renderer._wa, src, f.static, consts,
+                        f.iteration_direction, index=index)
             if gk:
                 dda, needs = rm.rewind(dda, visits, rs, g, index=index)
                 alive = rm._or_rows(alive, index, needs)
-    return Capture(f, rs, consts, ld, far, before[0], before[1], cells, chunk,
-                   bool(gk), index)
+    cells = rm.fetch_cells(renderer._wa, src, f.iteration_direction)
+    return Capture(f, rs, consts, ld, far, before[0], before[1], src, cells,
+                   renderer._wa, chunk, bool(gk), index)

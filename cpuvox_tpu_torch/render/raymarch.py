@@ -8,7 +8,8 @@ ExecuteRay, re-expressed data-parallel over all rays):
 
 - the per-ray ``while(true)`` march becomes a Python loop over chunks: each
   chunk rolls the content-independent DDA ``chunk`` cells per ray, fetches the
-  visited columns' records, then rasterizes the cells in order;
+  visited columns' records, then rasterizes the cells in order (on the card
+  the fetch is inside the rasterize kernel: ``march_ops``);
 - ``return``/``break`` early-outs become per-ray ``alive`` masks;
 - the raybuffer holds int32 color indices into ``WorldArrays.colors``
   (skybox = 0, unwritten = -1), resolved to ARGB once per frame; in ARGB
@@ -35,7 +36,7 @@ Both can compact the live rays (``compact``; the reference's staged
 compaction, ``raymarch.py:1085-1090`` and ``:1593-1605``), in this card's
 form: the
 raybuffer and all per-ray state stay in place at full width R, and the roll,
-the gate, the fetch and the rasterizer work on a live-ray index (ascending
+the gate and the rasterizer work on a live-ray index (ascending
 int32 (Rk,)), rebuilt whenever the live count has fallen to half of Rk or
 less.  The count is read where the march already asked the device whether
 any ray lives, so compaction adds no host sync.  It does add launches (the
@@ -126,6 +127,15 @@ class CellFields(NamedTuple):
     runs: torch.Tensor  # (C, R, max_runs) i32 [color index << 16 | length]
     # ARGB mode: (C, R, MCC) i32, the column's colors with bit 31 cleared
     colors: torch.Tensor | None = None
+
+
+class PackedCells(NamedTuple):
+    """A gated group's cells as the gate packs them, before any record is
+    read: the rasterizer's input on the gated march."""
+
+    rows: torch.Tensor  # (GK, R, 4) i32 [column index, ids0, ids1 (f32
+    # bits), lod]
+    proc: torch.Tensor  # (GK, R) bool: the ray's gated cell, else a no-op
 
 
 def to_i32(x: torch.Tensor) -> torch.Tensor:
@@ -771,14 +781,42 @@ def chunk_cells(wa: WorldArrays, visits, iteration_direction: int) -> CellFields
                       colors=None if colors is None else colors.contiguous())
 
 
+def packed_cells(wa: WorldArrays, cells: PackedCells,
+                 iteration_direction: int) -> CellFields:
+    """A gated group's cells with their column records fetched
+    (``raymarch.py:1333``); a cell outside ``proc`` fetches the packed
+    slot's column and is masked by ``valid``."""
+    rows = cells.rows
+    n_runs, color_off, cmin, cmax, runs, colors = _fetch_columns(
+        wa, rows[..., 0], cells.proc, iteration_direction)
+    return CellFields(
+        ids=rows[..., 1:3].contiguous().view(torch.float32),
+        lod=rows[..., 3].contiguous(), valid=cells.proc, n_runs=n_runs,
+        color_off=color_off.contiguous(), cmin=cmin.contiguous(),
+        cmax=cmax.contiguous(), runs=runs.contiguous(),
+        colors=None if colors is None else colors.contiguous())
+
+
+def fetch_cells(wa: WorldArrays, cells, iteration_direction: int) -> CellFields:
+    """The rasterizer's cells with their column records, from either input
+    of the march's rasterize op: the roll's visits (C, 13, R) on the dense
+    march, a ``PackedCells`` group on the gated march."""
+    if isinstance(cells, PackedCells):
+        return packed_cells(wa, cells, iteration_direction)
+    return chunk_cells(wa, cells, iteration_direction)
+
+
 def march_ops(kernels: bool):
     """(roll, raster): the ops wrappers (the CUDA kernels on a CUDA tensor),
-    or with ``kernels`` False their plain torch versions."""
+    or with ``kernels`` False their plain torch versions.  ``raster`` takes
+    (rs, wa, cells, static, consts, direction, index) with ``cells`` the
+    roll's visits or a ``PackedCells`` group, and reads the column records
+    itself."""
     from cpuvox_tpu_torch.ops import phase1_kernel, roll_kernel
 
     if kernels:
-        return roll_kernel.roll_chunk, phase1_kernel.rasterize_chunk
-    return roll_kernel.roll_chunk_ref, phase1_kernel.rasterize_chunk_ref
+        return roll_kernel.roll_chunk, phase1_kernel.rasterize_visits
+    return roll_kernel.roll_chunk_ref, phase1_kernel.rasterize_visits_ref
 
 
 # live-ray compaction since the last reset: index rebuilds, march chunks (or
@@ -820,9 +858,11 @@ def march(wa: WorldArrays, static: RayStatic, dda: DDAState, alive0,
           rs: RasterState, lod_distances, far_clip, dims, consts,
           iteration_direction: int, chunk: int, max_chunks: int,
           kernels: bool = True, compact: bool = True) -> RasterState:
-    """Full dense phase-1 march (``raymarch.py:895``): per chunk, roll, fetch
-    and rasterize the live rays, until every ray is dead or ``max_chunks``
-    ran.  One ``.item()`` per chunk: the live count (``live_rays``)."""
+    """Full dense phase-1 march (``raymarch.py:895``): per chunk, roll the
+    live rays, then fetch and rasterize their visited cells (one op, which
+    reads the column records itself), until every ray is dead or
+    ``max_chunks`` ran.  One ``.item()`` per chunk: the live count
+    (``live_rays``)."""
     roll, raster = march_ops(kernels)
     alive = alive0
     index = None
@@ -834,8 +874,7 @@ def march(wa: WorldArrays, static: RayStatic, dda: DDAState, alive0,
             break
         dda, alive, visits = roll(dda, march_alive, static.dirs, lod_distances,
                                   far_clip, dims, chunk, index=index)
-        cells = chunk_cells(wa, visits, iteration_direction)
-        rs = raster(rs, cells, static, consts, iteration_direction,
+        rs = raster(rs, wa, visits, static, consts, iteration_direction,
                     index=index)
         i += 1
     return rs
@@ -866,7 +905,7 @@ def _scatter_rows(dest, K: int, x):
 class GatedGroup(NamedTuple):
     """One gated iteration's group and what its rewind reads."""
 
-    cells: CellFields  # (GK, R) fields of each ray's first GK gated cells
+    cells: PackedCells  # (GK, R) each ray's first GK gated cells
     gate: torch.Tensor  # (C, R) bool: steps that reach the rasterizer
     rank: torch.Tensor  # (C, R) i32: a gated step's rank among the ray's
     count: torch.Tensor  # (R,) i32: gated steps per ray
@@ -874,12 +913,12 @@ class GatedGroup(NamedTuple):
 
 
 def gated_group(wa: WorldArrays, visits, rs: RasterState, consts,
-                iteration_direction: int, group_cells: int, index=None):
+                group_cells: int, index=None):
     """Stages A and B of a gated iteration (``raymarch.py:1228-1333``): gate
     a rolled chunk's cells on the occupancy tiles and the frozen frustum
     window, retire rays whose window cleared the solid bounds, and pack the
-    first ``group_cells`` gated cells of each ray.  Returns (rs with the
-    pre-kill applied, GatedGroup).  With a live-ray ``index`` the visits
+    first ``group_cells`` gated cells of each ray (no record is read here).
+    Returns (rs with the pre-kill applied, GatedGroup).  With a live-ray ``index`` the visits
     and the group are those rays', (., Rk)."""
     C, R = visits.shape[0], visits.shape[2]
     if index is not None:
@@ -956,7 +995,8 @@ def gated_group(wa: WorldArrays, visits, rs: RasterState, consts,
 
     # ---- stage B: pack the gated steps to a per-ray prefix, in step order;
     # the group's tail cells of rays with fewer than GK gated cells are not
-    # valid, which the rasterizer treats as no-ops
+    # in ``proc``, which the rasterizer treats as no-ops.  The column records
+    # are read by the rasterize op (``fetch_cells`` in its plain version)
     rank, dest_b = _pack_rank(gate, GK)
     ci = _cell_index(wa, lodc, xc, zc)
     packed = _scatter_rows(dest_b, GK, torch.stack(
@@ -964,14 +1004,7 @@ def gated_group(wa: WorldArrays, visits, rs: RasterState, consts,
     count = rank[-1] + 1
     cap = count.clamp(max=GK)
     proc = torch.arange(GK, dtype=torch.int32, device=dev)[:, None] < cap
-    n_runs, color_off, cmin, cmax, runs, colors = _fetch_columns(
-        wa, packed[..., 0], proc, iteration_direction)
-    cells = CellFields(
-        ids=packed[..., 1:3].contiguous().view(torch.float32),
-        lod=packed[..., 3].contiguous(), valid=proc, n_runs=n_runs,
-        color_off=color_off.contiguous(), cmin=cmin.contiguous(),
-        cmax=cmax.contiguous(), runs=runs.contiguous(),
-        colors=None if colors is None else colors.contiguous())
+    cells = PackedCells(packed, proc)
     return rs, GatedGroup(cells, gate, rank, count, cap)
 
 
@@ -1037,9 +1070,9 @@ def march_gated(wa: WorldArrays, static: RayStatic, dda: DDAState, alive0,
         dda, alive, visits = roll(dda, march_alive, static.dirs,
                                   lod_distances, far_clip, dims, chunk,
                                   index=index)
-        rs, g = gated_group(wa, visits, rs, consts, iteration_direction,
-                            group_cells, index=index)
-        rs = raster(rs, g.cells, static, consts, iteration_direction,
+        rs, g = gated_group(wa, visits, rs, consts, group_cells,
+                            index=index)
+        rs = raster(rs, wa, g.cells, static, consts, iteration_direction,
                     index=index)
         dda, needs = rewind(dda, visits, rs, g, index=index)
         alive = _or_rows(alive, index, needs)

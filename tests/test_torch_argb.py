@@ -260,10 +260,10 @@ def test_argb_raster_kernel_matches_plain_on_cuda(cuda, t):
     assert cap.cells.colors.shape[-1] == mcc
     args = (cap.cells, cap.frame.static, cap.consts,
             cap.frame.iteration_direction)
-    before = phase1_kernel.launches
+    before = phase1_kernel.chunk_launches
     got = phase1_kernel.rasterize_chunk(clone(cap.rs), *args, index=cap.index)
     torch.cuda.synchronize()
-    assert phase1_kernel.launches == before + 1
+    assert phase1_kernel.chunk_launches == before + 1
     want = phase1_kernel.rasterize_chunk_ref(clone(cap.rs), *args,
                                              index=cap.index)
     for k, x, y in zip(trm.RasterState._fields, got, want):

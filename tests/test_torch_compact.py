@@ -330,11 +330,11 @@ def test_raster_kernel_with_index_matches_plain_on_cuda(cuda, scene, pos,
                                                         pitch, yaw):
     from cpuvox_tpu_torch.ops import phase1_kernel
 
-    before = phase1_kernel.launches
+    before = phase1_kernel.chunk_launches
     check_raster_with_index(phase1_kernel.rasterize_chunk,
                             phase1_kernel.rasterize_chunk_ref, scene, pos,
                             pitch, yaw, cuda)
-    assert phase1_kernel.launches == before + 1
+    assert phase1_kernel.chunk_launches == before + 1
 
 
 @pytest.mark.cuda

@@ -175,12 +175,12 @@ def clone_state(rs):
 
 def test_rasterize_wrapper_takes_plain_version_on_cpu():
     rs, cells, st, consts, direction = chunk_fixture("cpu")
-    before = phase1_kernel.launches
+    before = phase1_kernel.chunk_launches
     a = phase1_kernel.rasterize_chunk(clone_state(rs), cells, st, consts,
                                       direction)
     b = phase1_kernel.rasterize_chunk_ref(clone_state(rs), cells, st, consts,
                                           direction)
-    assert phase1_kernel.launches == before
+    assert phase1_kernel.chunk_launches == before
     for k, x, y in zip(trm.RasterState._fields, a, b):
         assert torch.equal(x, y), k
 
@@ -192,11 +192,11 @@ def test_rasterize_wrapper_takes_plain_version_on_cpu():
 def test_rasterize_kernel_matches_plain_on_cuda(cuda, scene, pos, pitch, yaw):
     rs, cells, st, consts, direction = chunk_fixture(cuda, scene, pos, pitch,
                                                      yaw)
-    before = phase1_kernel.launches
+    before = phase1_kernel.chunk_launches
     got = phase1_kernel.rasterize_chunk(clone_state(rs), cells, st, consts,
                                         direction)
     torch.cuda.synchronize()
-    assert phase1_kernel.launches == before + 1
+    assert phase1_kernel.chunk_launches == before + 1
     want = phase1_kernel.rasterize_chunk_ref(clone_state(rs), cells, st,
                                              consts, direction)
     for k, x, y in zip(trm.RasterState._fields, got, want):
