@@ -10,8 +10,10 @@ non-zero (no phase catches its own failure):
 
 1. device: requires CUDA, prints the card's name and power limit, and holds
    the card's f32 ``/`` and ``sqrt`` against numpy's on a million values;
-2. build: compiles the three kernels (``cpuvox_tpu_torch/csrc/*.cu``) and
-   prints each one's registers and spills (``cuobjdump -res-usage``);
+2. build: compiles the kernel sources (``cpuvox_tpu_torch/csrc/*.cu``, one
+   ``nvcc`` each, all at once) and prints each kernel's registers and
+   spills (``cuobjdump -res-usage``); meanwhile the roll's previous design
+   (``bench/roll_variants.PREVIOUS_DESIGN``) builds beside it;
 3. terrain2048, the dense march (``bench.py``'s default scene, built as
    ``bench.py`` builds it and cached in ``.bench_cache/``): device ray init
    against host init on the card (every field and lane, six cameras) with
@@ -22,23 +24,28 @@ non-zero (no phase catches its own failure):
    kernel on the roll's visits, and the previous one-thread-a-ray kernel on
    the cells torch fetches, each against the plain version), both with the
    live-ray index the march holds there (under half the ray slots) and at
-   full width, the sample on that frame's reprojection maps; then a 64^3
+   full width; phase 2 on that frame: the fused kernel, and the previous
+   two-pass sample on the frame's reprojection maps, each against its
+   plain version, and the fused kernel on the same view rendered at scale
+   0.5 and upscaled; then a 64^3
    random world at 160x120 against the numpy oracle; one 320x180 frame
    through the kernels, the plain path, the kernels without compaction and
-   the kernels with device ray init (bit-equal); the 1920x1080 flythrough
-   (24 frames) with launch counts, index rebuilds and mean rays a chunk, a
-   magenta check, fps and frame p50, and no torch column fetch on the way;
+   the kernels with device ray init (bit-equal, and each variant's phase 2
+   through the fused kernel against its plain version); the 1920x1080
+   flythrough (24 frames) with launch counts, index rebuilds and mean rays
+   a chunk, a magenta check, fps and frame p50, no torch column fetch, no
+   torch phase-2 index map and one phase-2 launch a frame on the way;
 4. terrain2048 in ARGB mode (``argb_records=True``, with
    ``host_init=False``: device ray init): the records' shape and
    ``max_col_colors``; both rasterizers with MCC 13 on a 1080p chunk
-   against their plain version; one 320x180 frame three ways (ARGB
-   kernels, ARGB plain, index-mode kernels: equal screens); the 1920x1080
-   flythrough (24 frames) with 0 magenta; the same frames through both
-   modes in turns
+   against their plain version, phase 2 as in 3; one 320x180 frame three
+   ways (ARGB kernels, ARGB plain, index-mode kernels: equal screens); the
+   1920x1080 flythrough (24 frames) with 0 magenta; the same frames
+   through both modes in turns
    (each mode's frame p50), and three of them against index mode's screen;
 5. the split record layout: a small world of about 128 runs a column, both
    rasterizers at that MAXR against their plain version, one frame against
-   the plain path;
+   the plain path and its phase 2 through the fused kernel;
 6. layered2048, the occupancy-gated march (``bench.py``'s deep, mostly
    empty headline scene): (a) the device world, whose gate must resolve on,
    and device against host init at its dims; (b) the roll at chunk 128 and
@@ -49,12 +56,15 @@ non-zero (no phase catches its own failure):
    kernels, gated kernels without compaction, gated kernels with device ray
    init; (d) the 1920x1080 flythrough
    (24 frames) with 0 magenta, every kernel launched and busy rays rewound;
-7. each kernel's time against its plain version, its bound and, where one
-   PyTorch call computes the same function, that call's time, at each
-   path's shapes: per call by CUDA events around one Python call, and the
+   (e) phase 2 on a 1080p frame;
+7. each kernel's time against its plain version, its bound and, where
+   PyTorch calls compute the same function, their time, at each path's
+   shapes: per call by CUDA events around one Python call, and the
    device's own time a launch (calls queued back to back behind a wait);
-   for the rasterizer also the previous kernel design and the torch column
-   fetch that feeds it, on the same inputs.
+   beside each, its previous design on the same inputs (the roll's
+   previous constants, the one-thread-a-ray rasterizer and the torch
+   column fetch that fed it, the two-pass sample and the torch phase 2
+   around it).
 
 The three flythrough Renderers are created with ``compact=True`` (the march
 on a live-ray index; the Renderer's default is the full-width march, which
@@ -71,6 +81,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -84,9 +95,14 @@ KERNELS = [  # name, source, the TPU kernel it replaces
      "cpuvox_tpu/ops/roll_kernel.py:146"),
     ("rasterize_visits", "cpuvox_tpu_torch/csrc/rasterize.cu",
      "cpuvox_tpu/ops/phase1_kernel.py:715"),
-    ("sample_raybuffer", "cpuvox_tpu_torch/csrc/sample.cu",
+    ("reproject_screen", "cpuvox_tpu_torch/csrc/reproject.cu",
      "cpuvox_tpu/ops/reproject_kernel.py:64"),
 ]
+# the fused phase-2 kernel's f32 and integer operations: a segment's score
+# at a pixel (two correctly rounded divisions, counted as one each), and
+# then a pixel's ray index, sample address and resolve
+PHASE2_OPS_PER_SEGMENT = 20
+PHASE2_OPS_PER_PIXEL = 20
 # NVIDIA H100 SXM, published: HBM3 bandwidth and f32 rate outside the tensor
 # cores (the kernels do integer and f32 scalar work)
 HBM_BYTES_PER_S = 3.35e12
@@ -422,13 +438,26 @@ def check_split_layout(device, stats: dict) -> None:
     a, rb_a, _ = r.render_device(cam)
     b, rb_b, _ = plain.render_device(cam)
     compare("frame_split", [a, rb_a], [b, rb_b], {})
+    check_phase2(r, r.frame_setup(cam), rb_a, stats)
     log(f"[split] split record layout (max_runs {dw.max_runs}, meta records "
         f"{tuple(dw.col_rec.shape)}, {dw.runs.shape[0]} run words): "
         f"rasterize_visits == rasterize_chunk == plain at "
         f"MAXR={cap.cells.runs.shape[-1]} on "
         f"{rays_of(cap)} ({written} texels written); "
         f"{SMALL_WH[0]}x{SMALL_WH[1]} frame through the kernels == plain "
-        f"path, {int((rb_a > 0).sum())} texels drawn, 0 differ")
+        f"path, {int((rb_a > 0).sum())} texels drawn, 0 differ; "
+        f"reproject_screen == plain on it")
+
+
+def check_phase2(renderer, f, raybuf, stats: dict) -> tuple:
+    """The fused phase-2 kernel against its plain version on a frame's
+    raybuffer; returns the kernel's arguments."""
+    from cpuvox_tpu_torch.ops import reproject_kernel
+
+    args = renderer.phase2_args(f, raybuf)
+    compare("reproject_screen", [reproject_kernel.reproject_screen(*args)],
+            [reproject_kernel.reproject_screen_ref(*args)], stats)
+    return args
 
 
 def check_terrain_kernels(renderer, stats: dict, tag="terrain"):
@@ -467,16 +496,28 @@ def check_terrain_kernels(renderer, stats: dict, tag="terrain"):
             f"fields, {written} texels written, "
             f"MAXR={cap.cells.runs.shape[-1]}, MCC={mcc}")
 
-    _screen, raybuf, _geom = renderer.render_device(path_camera(renderer, 0.35))
-    maps = sample_maps(renderer, cap.frame.tables)
+    f = renderer.frame_setup(path_camera(renderer, 0.35))
+    raybuf = renderer.march(f)
+    maps = sample_maps(renderer, f.tables)
     for ri, mask in maps:
         compare("sample_raybuffer",
                 [reproject_kernel.sample_raybuffer(raybuf, ri, mask)],
                 [reproject_kernel.sample_raybuffer_ref(raybuf, ri, mask)], stats)
-    log(f"[{tag}] sample_raybuffer == plain on that frame's maps "
-        f"(LR {tuple(maps[0][0].shape)}, TD {tuple(maps[1][0].shape)}, "
-        f"raybuffer {tuple(raybuf.shape)})")
-    return {"roll": cap, "raster": (cap, written), "sample": (raybuf, maps)}
+    log(f"[{tag}] sample_raybuffer (the previous phase-2 design) == plain on "
+        f"that frame's maps (LR {tuple(maps[0][0].shape)}, TD "
+        f"{tuple(maps[1][0].shape)}, raybuffer {tuple(raybuf.shape)})")
+    args = check_phase2(renderer, f, raybuf, stats)
+    # and the same view rendered at half size, upscaled to the full screen
+    half = dataclasses.replace(renderer, config=dataclasses.replace(
+        renderer.config, render_scale=0.5), lod_distances=None)
+    fh = half.frame_setup(path_camera(renderer, 0.35))
+    check_phase2(half, fh, half.march(fh), stats)
+    log(f"[{tag}] reproject_screen == plain on that frame "
+        f"({'ARGB' if renderer.argb_on else 'index'} mode, "
+        f"{args[2]}x{args[3]}) and on the same view at render scale 0.5 "
+        f"({half.render_wh[0]}x{half.render_wh[1]} upscaled to "
+        f"{MAIN_WH[0]}x{MAIN_WH[1]}): 0 pixels differ")
+    return {"roll": cap, "raster": (cap, written), "phase2": (args, maps)}
 
 
 def sample_maps(renderer, tables):
@@ -532,11 +573,13 @@ def check_oracle(device):
         f"(oracle {t_oracle:.1f} s)")
 
 
-def check_small_frame(renderer, scene: str, variants):
+def check_small_frame(renderer, scene: str, variants, stats: dict):
     """One 320x180 frame through each variant: (label, config changes,
     another renderer or None, compact).  Screens must all equal the
     first's, and so must the raybuffers of the variants that share its
-    renderer (an index-mode raybuffer holds indices, an ARGB one colors)."""
+    renderer (an index-mode raybuffer holds indices, an ARGB one colors).
+    Each variant's raybuffer also goes through the fused phase-2 kernel and
+    its plain version."""
     from cpuvox_tpu_torch.render import raymarch
 
     cam = path_camera(renderer, 0.35, SMALL_WH)
@@ -554,6 +597,7 @@ def check_small_frame(renderer, scene: str, variants):
         torch.cuda.synchronize()
         outs.append((label, screen, rb, time.perf_counter() - t0,
                      r.occupancy_on))
+        check_phase2(r, f, rb, stats)
         rebuilt = raymarch.compact_stats["rebuilds"] - n0
         if bool(rebuilt) != compact:
             raise AssertionError(f"{scene} {label}: {rebuilt} index rebuilds "
@@ -567,7 +611,8 @@ def check_small_frame(renderer, scene: str, variants):
         + " == ".join(f"{label} (gate {'on' if g else 'off'}, {t:.2f} s cold)"
                       for label, _s, _r, t, g in outs)
         + f": screen {tuple(outs[0][1].shape)}, raybuffer "
-        f"{tuple(outs[0][2].shape)}, 0 texels differ")
+        f"{tuple(outs[0][2].shape)}, 0 texels differ; reproject_screen == "
+        "plain on each")
 
 
 def check_gated_kernels(renderer, stats: dict):
@@ -610,38 +655,51 @@ def check_gated_kernels(renderer, stats: dict):
 
 def flythrough(renderer, scene: str, card: str, gated: bool):
     """A path's 1080p flythrough with the launch counts set to 0 just before
-    it and read just after it, and every torch column fetch counted (the
-    march through the kernels must make none)."""
+    it and read just after it, and every torch column fetch and torch
+    phase-2 index map counted (the frames through the kernels must make
+    none): phase 2 is one launch of the fused kernel a frame."""
     from cpuvox_tpu_torch.bench.harness import run_flythrough
     from cpuvox_tpu_torch.ops import phase1_kernel, reproject_kernel
     from cpuvox_tpu_torch.ops import roll_kernel
-    from cpuvox_tpu_torch.render import raymarch
+    from cpuvox_tpu_torch.render import raymarch, reproject
 
     counters = (roll_kernel, phase1_kernel, reproject_kernel)
     for m in counters:
         m.launches = 0
     phase1_kernel.chunk_launches = 0
+    reproject_kernel.sample_launches = 0
     raymarch.gated_stats.update(iterations=0, rewinds=0)
     raymarch.compact_stats.update(rebuilds=0, chunks=0, ray_slots=0)
-    fetch = raymarch._fetch_columns
-    fetches = []
+    watched = ((raymarch, "_fetch_columns"), (reproject, "segment_ray_index"))
+    originals = [getattr(m, name) for m, name in watched]
+    calls = {name: 0 for _m, name in watched}
 
-    def counted_fetch(*args, **kw):
-        fetches.append(1)
-        return fetch(*args, **kw)
+    def counted(name, fn):
+        def wrapper(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return wrapper
 
-    raymarch._fetch_columns = counted_fetch
+    for (m, name), fn in zip(watched, originals):
+        setattr(m, name, counted(name, fn))
     try:
         metrics = run_flythrough(renderer, n_frames=N_FRAMES, log=log)
     finally:
-        raymarch._fetch_columns = fetch
+        for (m, name), fn in zip(watched, originals):
+            setattr(m, name, fn)
     launches = [m.launches for m in counters]
     gstats = dict(raymarch.gated_stats)
     cstats = dict(raymarch.compact_stats)
-    if fetches or phase1_kernel.chunk_launches:
-        raise AssertionError(f"{scene}: the march fetched records in torch "
-                             f"{len(fetches)} times and launched the previous "
-                             f"rasterizer {phase1_kernel.chunk_launches} times")
+    frames = N_FRAMES + 2  # the harness's two warmup frames count too
+    if any(calls.values()) or phase1_kernel.chunk_launches:
+        raise AssertionError(f"{scene}: torch calls {calls} and "
+                             f"{phase1_kernel.chunk_launches} launches of the "
+                             "previous rasterizer on the frame path")
+    if reproject_kernel.sample_launches or launches[2] != frames:
+        raise AssertionError(
+            f"{scene}: phase 2 made {launches[2]} fused launches and "
+            f"{reproject_kernel.sample_launches} sample launches in {frames} "
+            "frames, where one fused launch a frame was expected")
     if not cstats["rebuilds"]:
         raise AssertionError(f"{scene}: the march never compacted its rays")
     if metrics["magenta_pixels"]:
@@ -652,7 +710,6 @@ def flythrough(renderer, scene: str, card: str, gated: bool):
                              f"launches {launches}")
     if gated and gstats["rewinds"] <= 0:
         raise AssertionError(f"{scene}: the gated march rewound no ray")
-    frames = N_FRAMES + 2  # the harness's two warmup frames count too
     extra = (f"; {gstats['iterations'] / frames:.1f} gated iterations and "
              f"{gstats['rewinds'] / frames:.0f} rays rewound per frame"
              if gated else "")
@@ -664,8 +721,9 @@ def flythrough(renderer, scene: str, card: str, gated: bool):
         f"{metrics['frame_ms_p50']:.1f} ms (device span p50 "
         f"{metrics['frame_gpu_ms_p50']:.1f} ms), "
         f"{metrics['ray_columns_per_sec']:.0f} ray columns/s, 0 magenta, 0 "
-        f"torch column fetches; launches roll {launches[0]}, rasterize "
-        f"{launches[1]}, sample {launches[2]}{extra}")
+        f"torch column fetches, 0 torch phase-2 index maps; launches roll "
+        f"{launches[0]}, rasterize {launches[1]}, phase 2 {launches[2]} "
+        f"(0 of the previous sample){extra}")
     return dict(zip([k[0] for k in KERNELS], launches)), metrics, gstats
 
 
@@ -755,6 +813,37 @@ def sample_work(maps):
     return nbytes, nops
 
 
+def phase2_work(args, maps):
+    """Bytes and operations one call of the fused phase-2 kernel needs on
+    this data: each distinct raybuffer texel the render pixels sample, in
+    index mode each distinct color word they resolve to (the color table
+    holds a word a voxel, so it is read where it is needed, not whole), the
+    (H, W) screen written; ``PHASE2_OPS_PER_SEGMENT`` for each active
+    segment up to a pixel's own (the kernel's scan stops there) and
+    ``PHASE2_OPS_PER_PIXEL`` a render pixel."""
+    from cpuvox_tpu_torch.render import reproject
+
+    raybuf, tables, rw, rh, width, height, colors, _sky = args
+    nbytes, nops = 4 * width * height, 0
+    if tables["active"].any():
+        R, P = raybuf.shape
+        ri, lr = maps[0][0].clamp(0, R - 1).long(), maps[0][1] != 0
+        dev = ri.device
+        texel = torch.where(lr, torch.arange(rw, device=dev)[None, :],
+                            torch.arange(rh, device=dev)[:, None])
+        nbytes += 4 * torch.unique(ri * P + texel).numel()
+        seg, _ri = reproject.segment_ray_index(tables, rw, rh, dev)
+        scanned = sum(int((seg >= s).sum()) for s in range(4)
+                      if tables["active"][s])
+        nops += (PHASE2_OPS_PER_SEGMENT * scanned
+                 + PHASE2_OPS_PER_PIXEL * rw * rh)
+    if colors is not None:
+        idx = reproject.reproject(raybuf, tables, rw, rh, kernels=False)
+        idx = idx[idx >= 0].clamp(max=colors.shape[0] - 1)
+        nbytes += 4 * torch.unique(idx).numel()
+    return nbytes, nops
+
+
 def device_ms(fn, setup, reps: int) -> float:
     """The card's own time of one call of ``fn``, in ms, without the host's
     launch overhead that CUDA events around one Python call hold: the card
@@ -784,13 +873,16 @@ def device_ms(fn, setup, reps: int) -> float:
 def time_kernels(caps: dict) -> dict:
     """Each kernel's time at a path's shapes: kernel (per Python call by
     CUDA events, and the device's own time a launch, ``device_ms``), plain
-    version, bound and the one-call PyTorch equivalent where there is one.
-    For the rasterizer also, on the same inputs, the time of the previous
-    kernel design (``rasterize_chunk``), of the torch column fetch that
-    feeds it (``raymarch.fetch_cells``), and of the two as the march ran
-    them."""
+    version, bound and the PyTorch calls that compute the same function
+    where there are any.  Beside each, on the same inputs, its previous
+    design: the roll's (``bench/roll_variants.PREVIOUS_DESIGN``, built into
+    ``caps["roll_previous"]``); the rasterizer's (``rasterize_chunk``), the
+    torch column fetch that feeds it (``raymarch.fetch_cells``), and the two
+    as the march ran them; phase 2's, the two-pass sample on the maps torch
+    computes, and the whole torch phase 2 around it as the frame ran it."""
     from cpuvox_tpu_torch.bench.capture import clone
-    from cpuvox_tpu_torch.ops import phase1_kernel, reproject_kernel
+    from cpuvox_tpu_torch.bench.variants import use
+    from cpuvox_tpu_torch.ops import _build, phase1_kernel, reproject_kernel
     from cpuvox_tpu_torch.ops import roll_kernel
     from cpuvox_tpu_torch.render import raymarch
 
@@ -802,51 +894,76 @@ def time_kernels(caps: dict) -> dict:
     direction = xcap.frame.iteration_direction
     rargs = (xcap.frame.static, xcap.consts, direction)
     raster_kw = {"index": xcap.index}
-    raybuf, maps = caps["sample"]
+    p2args, maps = caps["phase2"]
+    raybuf = p2args[0]
     maps_long = [(ri.long(), mask != 0) for ri, mask in maps]
 
     def gather_where(_):
         return [torch.where(m, torch.gather(raybuf, 0, ri), -1)
                 for ri, m in maps_long]
 
+    def roll(a):
+        return roll_kernel.roll_chunk(*a, *roll_rest, **roll_kw)
+
+    def roll_setup():
+        return clone(rcap.dda), rcap.alive.clone()
+
     plain_reps = caps.get("plain_reps", 2)
     out = {}
-    for name, kern, plain, library, setup, reps, work in (
-            ("roll_chunk",
-             lambda a: roll_kernel.roll_chunk(*a, *roll_rest, **roll_kw),
+    for name, kern, plain, library, setup, reps, work, rays in (
+            ("roll_chunk", roll,
              lambda a: roll_kernel.roll_chunk_ref(*a, *roll_rest, **roll_kw),
-             None, lambda: (clone(rcap.dda), rcap.alive.clone()),
-             (20, plain_reps), roll_work(rcap)),
+             None, roll_setup, (20, plain_reps), roll_work(rcap),
+             rays_worked(rcap)),
             ("rasterize_visits",
              lambda rs: phase1_kernel.rasterize_visits(
                  rs, xcap.wa, xcap.src, *rargs, **raster_kw),
              lambda rs: phase1_kernel.rasterize_visits_ref(
                  rs, xcap.wa, xcap.src, *rargs, **raster_kw), None,
-             lambda: clone(xcap.rs), (10, 1), raster_work(xcap, written)),
-            ("sample_raybuffer",
-             lambda _: [reproject_kernel.sample_raybuffer(raybuf, *m)
-                        for m in maps],
-             lambda _: [reproject_kernel.sample_raybuffer_ref(raybuf, *m)
-                        for m in maps], gather_where, lambda: None, (50, 10),
-             sample_work(maps))):
+             lambda: clone(xcap.rs), (10, 1), raster_work(xcap, written),
+             rays_worked(xcap)),
+            ("reproject_screen",
+             lambda _: reproject_kernel.reproject_screen(*p2args),
+             lambda _: reproject_kernel.reproject_screen_ref(*p2args),
+             gather_where, lambda: None, (50, 10), phase2_work(p2args, maps),
+             raybuf.shape[0])):
         time_ms(kern, 2, setup)  # warm
         ms = time_ms(kern, reps[0], setup)
         dev_ms = device_ms(kern, setup, 10)
         plain_ms = time_ms(plain, reps[1], setup)
-        library_ms = None
+        library_ms = library_dev_ms = None
         if library is not None:
             time_ms(library, 2)
             library_ms = time_ms(library, reps[0])
+            library_dev_ms = device_ms(library, setup, 10)
         b_ms, b_by = bound(*work)
         out[name] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                      "library_ms": library_ms,
-                     "rays": (rays_worked(rcap) if name == "roll_chunk" else
-                              rays_worked(xcap)),
+                     "library_device_ms": library_dev_ms, "rays": rays,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "bytes": int(work[0]), "operations": int(work[1])}
 
-    # the previous design on the same inputs: its kernel on the fetched
-    # cells, the fetch alone, and the two as the march ran them
+    # the roll's previous design, built from csrc/roll.cu with its earlier
+    # constants, on the same inputs (held against the plain version first)
+    use(caps["roll_previous"])
+    try:
+        got = roll(roll_setup())
+        want = roll_kernel.roll_chunk_ref(*roll_setup(), *roll_rest,
+                                          **roll_kw)
+        compare("roll_chunk previous design", [*got[0], got[1], got[2]],
+                [*want[0], want[1], want[2]], {})
+        time_ms(roll, 2, roll_setup)  # warm
+        prev = {"name": "roll_chunk, previous design",
+                "kernel_ms": time_ms(roll, 20, roll_setup),
+                "kernel_device_ms": device_ms(roll, roll_setup, 10)}
+    finally:
+        use(_build.build())
+    prev["device_ratio"] = (out["roll_chunk"]["device_ms"]
+                            / prev["kernel_device_ms"])
+    out["roll_chunk"]["previous_design"] = prev
+
+    # the rasterizer's previous design on the same inputs: its kernel on the
+    # fetched cells, the fetch alone, and the two as the march ran them
     def old_kernel(rs):
         phase1_kernel.rasterize_chunk(rs, xcap.cells, *rargs, **raster_kw)
 
@@ -869,6 +986,28 @@ def time_kernels(caps: dict) -> dict:
     prev["device_ratio"] = (out["rasterize_visits"]["device_ms"]
                             / prev["kernel_and_fetch_device_ms"])
     out["rasterize_visits"]["previous_design"] = prev
+
+    # phase 2's previous design: the two sample passes on the maps, and the
+    # whole torch phase 2 around them as the frame ran it (its three
+    # pageable table copies wait for the card, so only per call)
+    def two_passes(_):
+        return [reproject_kernel.sample_raybuffer(raybuf, *m) for m in maps]
+
+    def old_phase2(_):
+        return reproject_kernel.reproject_screen_two_pass(*p2args)
+
+    time_ms(two_passes, 2)  # warm
+    time_ms(old_phase2, 2)
+    b_ms, b_by = bound(*sample_work(maps))
+    prev = {"name": "sample_raybuffer, two passes",
+            "kernel_ms": time_ms(two_passes, 50),
+            "kernel_device_ms": device_ms(two_passes, lambda: None, 10),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": int(sample_work(maps)[0]),
+            "phase2_ms": time_ms(old_phase2, 20)}
+    prev["device_ratio"] = (out["reproject_screen"]["device_ms"]
+                            / prev["kernel_device_ms"])
+    out["reproject_screen"]["previous_design"] = prev
     return out
 
 
@@ -893,11 +1032,31 @@ def resource_usage(lib: str) -> None:
             f"shared {fields['SHARED']} B")
 
 
+# each kernel's previous design, as the [time] lines describe it
+PREVIOUS_TXT = {
+    "roll_chunk": lambda p: (
+        f"{p['name']} {p['kernel_device_ms']:.4f} ms on the device, "
+        f"{p['kernel_ms']:.4f} ms a call, 0 elements differ from the plain "
+        "version"),
+    "rasterize_visits": lambda p: (
+        f"rasterize_chunk {p['kernel_device_ms']:.4f} ms + torch column "
+        f"fetch {p['fetch_device_ms']:.4f} ms on the device (as the march "
+        f"ran them {p['kernel_and_fetch_device_ms']:.4f} ms on the device, "
+        f"{p['kernel_and_fetch_ms']:.4f} ms a call)"),
+    "reproject_screen": lambda p: (
+        f"the two sample passes {p['kernel_device_ms']:.4f} ms on the "
+        f"device, {p['kernel_ms']:.4f} ms a call (bound {p['bound_ms']:.4f} "
+        f"ms, {p['bound_by']}: {p['bytes']} B); the whole torch phase 2 "
+        f"around them {p['phase2_ms']:.4f} ms a call"),
+}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this check runs only on the card", file=sys.stderr)
         return 2
+    from cpuvox_tpu_torch.bench import roll_variants
     from cpuvox_tpu_torch.bench.harness import layered2048, terrain2048
     from cpuvox_tpu_torch.config import RenderConfig
     from cpuvox_tpu_torch.ops import _build
@@ -912,11 +1071,26 @@ def main() -> int:
     check_card_arithmetic(dev)
 
     t0 = time.perf_counter()
+    # the roll's previous design, to be timed beside it, builds meanwhile
+    prev_roll: dict = {}
+    prev_build = threading.Thread(target=lambda: prev_roll.update(
+        roll_variants.build(os.path.join(_build.BUILD_DIR, "previous_roll"),
+                            [("previous design",
+                              roll_variants.PREVIOUS_DESIGN)])))
+    prev_build.start()
     lib = _build.build()
     _build.library()
-    log(f"[build] {len(_build.sources())} kernels (nvcc {' '.join(_build.NVCC_FLAGS)})"
-        f" -> {os.path.relpath(lib)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[build] {len(_build.sources())} sources, one nvcc each "
+        f"({' '.join(_build.COMPILE_FLAGS)}) -> {os.path.relpath(lib)} in "
+        f"{time.perf_counter() - t0:.1f} s")
     resource_usage(lib)
+    prev_build.join()
+    if "previous design" not in prev_roll:
+        raise AssertionError("the roll's previous design did not build")
+    log(f"[build] the roll's previous design "
+        f"({roll_variants.PREVIOUS_DESIGN}) -> "
+        f"{os.path.relpath(prev_roll['previous design'])} by "
+        f"{time.perf_counter() - t0:.1f} s")
     main_cfg = RenderConfig(width=MAIN_WH[0], height=MAIN_WH[1])
 
     # ---- terrain2048: the dense march
@@ -940,9 +1114,11 @@ def main() -> int:
     check_small_frame(terrain, "terrain", [
         ("kernels", {}, None, True), ("plain", {"backend": "xla"}, None, True),
         ("kernels, no compaction", {}, None, False),
-        ("kernels, device ray init", {"host_init": False}, None, True)])
+        ("kernels, device ray init", {"host_init": False}, None, True)],
+        stats)
     t_launches, _m, _g = flythrough(terrain, "terrain", card, gated=False)
     t_caps["dims"] = terrain.device_world.dims
+    t_caps["roll_previous"] = prev_roll["previous design"]
     t_times = time_kernels(t_caps)
     log(f"[terrain] done at {time.perf_counter() - t_start:.1f} s")
 
@@ -970,10 +1146,11 @@ def main() -> int:
     check_small_frame(argb, "argb", [
         ("ARGB kernels", {}, None, True),
         ("ARGB plain", {"backend": "xla"}, None, True),
-        ("index-mode kernels", {}, terrain, True)])
+        ("index-mode kernels", {}, terrain, True)], stats)
     a_launches, _m, _g = flythrough(argb, "argb", card, gated=False)
     check_argb_frames(argb, terrain, card)
     a_caps["dims"] = adw.dims
+    a_caps["roll_previous"] = prev_roll["previous design"]
     a_times = time_kernels(a_caps)
     del argb, a_caps, adw
     torch.cuda.empty_cache()
@@ -1003,16 +1180,19 @@ def main() -> int:
         ("dense kernels", {"occupancy_gate": "off"}, None, True),
         ("gated kernels, no compaction", {}, None, False),
         ("gated kernels, device ray init", {"host_init": False}, None,
-         True)])
+         True)], stats)
     l_launches, _m, _g = flythrough(layered, "layered", card, gated=True)
-    # time at the captured group with the most gated cells, and the sample
-    # on that frame's raybuffer
+    # time at the captured group with the most gated cells, and phase 2 on
+    # that frame's raybuffer
     busiest = max(g_caps.values(), key=lambda c: int(c[0].cells.valid.sum()))
-    _screen, l_raybuf, _geom = layered.render_device(busiest[0].frame.cam)
+    f = layered.frame_setup(busiest[0].frame.cam)
+    p2args = check_phase2(layered, f, layered.march(f), stats)
+    log(f"[layered] reproject_screen == plain on a 1080p frame: 0 pixels "
+        "differ")
     l_times = time_kernels({
         "roll": busiest[0], "raster": busiest,
-        "sample": (l_raybuf, sample_maps(layered,
-                                         busiest[0].frame.tables)),
+        "phase2": (p2args, sample_maps(layered, f.tables)),
+        "roll_previous": prev_roll["previous design"],
         "dims": dw.dims, "plain_reps": 1})
     log(f"[layered] done at {time.perf_counter() - t_start:.1f} s")
 
@@ -1022,7 +1202,8 @@ def main() -> int:
         for path, t in (("terrain2048", tt), ("terrain2048 ARGB", at),
                         ("layered2048", lt)):
             lib_txt = ("none" if t["library_ms"] is None
-                       else f"{t['library_ms']:.4f} ms")
+                       else f"{t['library_ms']:.4f} ms a call, "
+                       f"{t['library_device_ms']:.4f} ms on the device")
             log(f"[time] {kname} at {path}'s shapes ({t['rays']} rays): "
                 f"kernel {t['ms']:.4f} ms a call, {t['device_ms']:.4f} ms on "
                 f"the device a launch, "
@@ -1030,19 +1211,11 @@ def main() -> int:
                 f"({t['bound_by']}: {t['bytes']} B, {t['operations']} ops), "
                 f"library {lib_txt}; {stats[kname]['mismatches']} mismatches "
                 f"against the plain version, tolerance 0 ({card})")
-            prev = t.get("previous_design")
-            if prev:
-                log(f"[time] {kname} at {path}'s shapes, the previous design "
-                    f"on the same inputs: rasterize_chunk "
-                    f"{prev['kernel_device_ms']:.4f} ms + torch column fetch "
-                    f"{prev['fetch_device_ms']:.4f} ms on the device "
-                    f"(as the march ran them "
-                    f"{prev['kernel_and_fetch_device_ms']:.4f} ms on the "
-                    f"device, {prev['kernel_and_fetch_ms']:.4f} ms a call): "
-                    f"the group kernel's {t['device_ms']:.4f} ms is "
-                    f"{prev['device_ratio']:.4f} of it; rasterize_chunk "
-                    f"{stats['rasterize_chunk']['mismatches']} mismatches "
-                    f"against the plain version, tolerance 0 ({card})")
+            prev = t["previous_design"]
+            log(f"[time] {kname} at {path}'s shapes, the previous design on "
+                f"the same inputs: " + PREVIOUS_TXT[kname](prev)
+                + f"; this design's {t['device_ms']:.4f} ms on the device is "
+                f"{prev['device_ratio']:.4f} of it ({card})")
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces, "launches": l_launches[kname],
@@ -1051,6 +1224,8 @@ def main() -> int:
             "plain_ms": lt["plain_ms"],
             "bound_ms": lt["bound_ms"], "bound_by": lt["bound_by"],
             "library_ms": lt["library_ms"],
+            "library_device_ms": lt["library_device_ms"],
+            "previous_design": lt["previous_design"],
             "launches_by_path": {"terrain2048": t_launches[kname],
                                  "terrain2048_argb": a_launches[kname],
                                  "layered2048": l_launches[kname]},

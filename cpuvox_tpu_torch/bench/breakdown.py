@@ -22,7 +22,10 @@ path, on one card:
 2. whole frames unprofiled, host clock: the wall time of the pass;
 3. whole frames with and without live-ray compaction in turns (the order
    swaps every frame), host clock, before the profiler is ever on: each
-   side's frame p50 and the pairs the compacted march wins;
+   side's frame p50 and the pairs the compacted march wins; then whole
+   frames with phase 2 through the fused kernel and through its previous
+   design (``reproject_kernel.reproject_screen_two_pass``) in turns, and
+   the two phase 2s alone on the same raybuffer: each side's p50;
 4. the same frames under ``torch.profiler``: every device activity (kernels,
    copies, fills) with its interval on the card.  The device's busy time is
    the union of those intervals; the busy share is that over pass 2's wall
@@ -31,14 +34,18 @@ path, on one card:
    beforehand: device activities per chunk of the dense march or per gated
    iteration (each is one launch from the host; one rasterize launch a
    chunk or iteration), and the march's device busy time over pass 1's
-   march time.
+   march time; then phase 2 alone on those marches' raybuffers, as the
+   renderer runs it and through its plain torch version: device
+   activities a frame, and the fused kernel's launches as its wrapper
+   counts them (profiled right after the march, the profiler can come
+   back short of them).
 
 Device time by name is summed from the same activities: each kernel counts
 once (``key_averages``' "CUDA total" column counts a kernel under its aten op
 too); for the port's three kernels the device time a launch is printed (the
 rasterizer is the group kernel ``rasterize_visits_kernel``, which reads the
 column records itself: the march runs no torch record gather and no unpack
-``cumsum``).  The last line of stdout is one JSON object with every
+``cumsum``; phase 2 is ``reproject_screen_kernel``).  The last line of stdout is one JSON object with every
 number.
 """
 from __future__ import annotations
@@ -95,7 +102,7 @@ def main(argv=None) -> int:
 
     from cpuvox_tpu_torch.bench import path as bench_path
     from cpuvox_tpu_torch.config import RenderConfig
-    from cpuvox_tpu_torch.ops import phase1_kernel
+    from cpuvox_tpu_torch.ops import phase1_kernel, reproject_kernel
     from cpuvox_tpu_torch.render import raymarch
     from cpuvox_tpu_torch.render.frame import Renderer
 
@@ -187,6 +194,39 @@ def main(argv=None) -> int:
           f"{int((on < off).sum())} of {len(cams)} pairs, median difference "
           f"{np.median(on - off):+.3f} ms")
 
+    # 3b. phase 2 through the fused kernel and through its previous design
+    # (the torch index map, the two-pass sample, the torch resolve), in
+    # turns: whole frames, then phase 2 alone on the same raybuffer
+    def previous(f, rb):
+        return reproject_kernel.reproject_screen_two_pass(
+            *renderer.phase2_args(f, rb))
+
+    p2_frame = {"fused": [], "previous": []}
+    p2_alone = {"fused": [], "previous": []}
+    for k, cam in enumerate(cams):
+        order = (("fused", renderer.phase2), ("previous", previous))
+        for name, p2 in (order if k % 2 else order[::-1]):
+            sync()
+            t0 = time.perf_counter()
+            f = renderer.frame_setup(cam)
+            rb = renderer.march(f, compact=compact)
+            p2(f, rb)
+            sync()
+            p2_frame[name].append((time.perf_counter() - t0) * 1e3)
+        for name, p2 in (order if k % 2 else order[::-1]):
+            t0 = time.perf_counter()
+            p2(f, rb)
+            sync()
+            p2_alone[name].append((time.perf_counter() - t0) * 1e3)
+    fu, pr = np.array(p2_frame["fused"]), np.array(p2_frame["previous"])
+    p2_med = {k: float(np.median(v)) for k, v in p2_alone.items()}
+    print(f"phase 2 fused and previous in turns: frame p50 {np.median(fu):.3f} "
+          f"ms fused, {np.median(pr):.3f} ms previous; fused faster in "
+          f"{int((fu < pr).sum())} of {len(cams)} pairs, median difference "
+          f"{np.median(fu - pr):+.3f} ms; phase 2 alone p50 "
+          f"{p2_med['fused']:.3f} ms fused, {p2_med['previous']:.3f} ms "
+          f"previous")
+
     # 4. the same frames under the profiler
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -212,20 +252,20 @@ def main(argv=None) -> int:
         print(f"  {ms:10.3f} ms {ms / dev_sum_ms:7.2%} {k:6d}x  {n[:90]}")
     per_launch = {}
     for short in ("roll_chunk_kernel", "rasterize_visits_kernel",
-                  "sample_raybuffer_kernel"):
+                  "reproject_screen_kernel"):
         ms, k = map(sum, zip(*([v for n, v in by_name.items() if short in n]
                                or [[0.0, 0]])))
         per_launch[short] = [ms, k, ms / k * 1e3 if k else None]
         print(f"  {short}: {ms:.3f} ms over {k} launches -> "
               f"{ms / max(k, 1) * 1e3:.2f} us on the device a launch")
 
-    # 5. the march alone under the profiler
+    # 5. the march alone under the profiler, then phase 2 alone on its
+    # raybuffers
     setups = [renderer.frame_setup(cam) for cam in cams]
     sync()
     n0 = phase1_kernel.launches
     with torch.profiler.profile(activities=acts) as prof:
-        for f in setups:
-            renderer.march(f, compact=compact)
+        raybufs = [renderer.march(f, compact=compact) for f in setups]
         sync()
     iters = phase1_kernel.launches - n0
     march_dev = device_activities(prof)
@@ -235,12 +275,37 @@ def main(argv=None) -> int:
           f"{unit}s -> {len(march_dev) / iters:.1f} per {unit}; device busy "
           f"{march_busy_ms:.3f} ms against {tot[1]:.3f} ms of march (pass 1) "
           f"-> march busy share {march_busy_ms / tot[1]:.4f}")
+    p2_acts = {}
+    k0 = reproject_kernel.launches
+    for label, fn in (("as the renderer runs it", renderer.phase2),
+                      ("its plain torch version", lambda f, rb: (
+                          reproject_kernel.reproject_screen_ref(
+                              *renderer.phase2_args(f, rb))))):
+        with torch.profiler.profile(activities=acts) as prof:
+            for f, rb in zip(setups, raybufs):
+                fn(f, rb)
+            sync()
+        p2_dev = device_activities(prof)
+        p2_acts[label] = len(p2_dev) / len(setups)
+        names = sorted({n[:50] for n, _s, _e in p2_dev})
+        print(f"phase 2 alone, {label}: {len(p2_dev)} device activities "
+              f"over {len(setups)} frames -> {p2_acts[label]:.1f} a frame "
+              f"({len(names)} names: {', '.join(names[:4])})")
+    p2_launches = reproject_kernel.launches - k0
+    print(f"phase 2 alone: {p2_launches} launches of the fused kernel "
+          f"counted by its wrapper over {len(setups)} frames (the profiler "
+          f"can drop activities right after a profile as large as the "
+          f"march's)")
     print(json.dumps({
         "card": card, "scene": args.scene, "gate": args.gate,
         "argb": renderer.argb_on, "host_init": not args.device_init,
         "paired_frame_ms_p50_compacted": float(np.median(on)),
         "paired_frame_ms_p50_uncompacted": float(np.median(off)),
         "paired_compacted_wins": int((on < off).sum()),
+        "paired_frame_ms_p50_phase2_fused": float(np.median(fu)),
+        "paired_frame_ms_p50_phase2_previous": float(np.median(pr)),
+        "paired_phase2_fused_wins": int((fu < pr).sum()),
+        "paired_phase2_ms_p50": p2_med,
         "compact": compact, "index_rebuilds_per_frame": rebuilds,
         "mean_ray_slots_per_chunk": mean_rays,
         "kernel_device_ms_launches_us": per_launch,
@@ -258,6 +323,8 @@ def main(argv=None) -> int:
         "march_activities_per_chunk": len(march_dev) / iters,
         "march_busy_ms": march_busy_ms,
         "march_busy_share": march_busy_ms / tot[1],
+        "phase2_activities_per_frame": p2_acts,
+        "phase2_fused_launches_per_frame": p2_launches / len(setups),
         "device_ms_by_name": {n[:120]: [ms, k] for n, (ms, k) in top}}))
     return 0
 

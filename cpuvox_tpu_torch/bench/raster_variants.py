@@ -5,8 +5,9 @@
 Run from the repository root.  Each variant is the kernel library built from
 ``csrc/`` with one constant of ``csrc/rasterize.cu`` changed (``kGroup``, the
 lanes a ray; ``kSerialRuns``, the runs a column up to which a world's cells
-are swept serially), into ``csrc/build/variants/``.  Every variant is held against the
-plain version on the captured states (tolerance 0) and timed on the device
+are swept serially), into ``csrc/build/variants/`` (``bench/variants.py``).
+Every variant is held against the plain version on the captured states
+(tolerance 0) and timed on the device
 (``chip_smoke.device_ms``, the best of three), beside the previous kernel
 design, at the 1080p shapes ``chip_smoke.py`` times: a terrain2048 chunk on
 a live-ray index and at full width, and a layered2048 gated group in each
@@ -14,16 +15,13 @@ iteration direction.  The last line of stdout is one JSON object.
 """
 from __future__ import annotations
 
-import ctypes
-import glob
 import json
 import os
-import re
-import shutil
-import subprocess
 import sys
 
 import torch
+
+from cpuvox_tpu_torch.bench.variants import build_variants, registers, use
 
 # (label, constants of csrc/rasterize.cu to set): the built design first
 VARIANTS = [
@@ -33,59 +31,6 @@ VARIANTS = [
     ("serial sweep in every world", {"kSerialRuns": 64}),
     ("parallel sweep in every world", {"kSerialRuns": 0}),
 ]
-
-
-def build_variants(out_dir: str) -> dict:
-    """Build every variant's library in parallel; returns label -> path."""
-    from cpuvox_tpu_torch.ops import _build
-
-    shutil.rmtree(out_dir, ignore_errors=True)
-    procs = {}
-    for i, (label, consts) in enumerate(VARIANTS):
-        d = os.path.join(out_dir, str(i))
-        os.makedirs(d)
-        for src in glob.glob(os.path.join(_build.CSRC, "*.cu*")):
-            with open(src) as f:
-                txt = f.read()
-            for name, value in consts.items():
-                txt, n = re.subn(rf"constexpr int {name} = -?\d+;",
-                                 f"constexpr int {name} = {value};", txt)
-                if src.endswith("rasterize.cu") and n != 1:
-                    raise RuntimeError(f"{name} not found in {src}")
-            with open(os.path.join(d, os.path.basename(src)), "w") as f:
-                f.write(txt)
-        lib = os.path.join(d, "lib.so")
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib,
-               *sorted(glob.glob(os.path.join(d, "*.cu")))]
-        procs[label] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                              stderr=subprocess.STDOUT,
-                                              text=True))
-    libs = {}
-    for label, (lib, p) in procs.items():
-        out = p.communicate()[0]
-        if p.returncode:
-            raise RuntimeError(f"nvcc failed for {label}:\n{out}")
-        libs[label] = lib
-    return libs
-
-
-def registers(lib: str) -> str:
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    out = subprocess.run([tool, "-res-usage", lib], capture_output=True,
-                         text=True, timeout=120, check=True).stdout
-    m = re.search(r"rasterize_visits_kernel.*?\n\s*REG:(\d+) STACK:(\d+)",
-                  out)
-    return f"{m.group(1)} registers, stack {m.group(2)} B" if m else "?"
-
-
-def use(lib: str) -> None:
-    """Make the ops wrappers call into ``lib``."""
-    from cpuvox_tpu_torch.ops import _build
-
-    _build._lib = ctypes.CDLL(lib)
-    _build._lib.cpuvox_error_string.argtypes = [ctypes.c_int]
-    _build._lib.cpuvox_error_string.restype = ctypes.c_char_p
-    _build._functions.clear()
 
 
 def main() -> int:
@@ -101,9 +46,11 @@ def main() -> int:
 
     card = cs.card_line()
     print(card, flush=True)
-    libs = build_variants(os.path.join(_build.BUILD_DIR, "variants"))
+    libs = build_variants(os.path.join(_build.BUILD_DIR, "variants"),
+                          VARIANTS, "rasterize.cu")
     for label, lib in libs.items():
-        print(f"{label}: {registers(lib)}", flush=True)
+        print(f"{label}: {registers(lib, 'rasterize_visits_kernel')}",
+              flush=True)
     use(libs[VARIANTS[0][0]])
     dev = torch.device("cuda", 0)
     cfg = RenderConfig(width=cs.MAIN_WH[0], height=cs.MAIN_WH[1])

@@ -4,15 +4,28 @@
 // behind raymarch._roll_chunk_pallas).  The plain version is the torch
 // cpuvox_tpu_torch.render.raymarch._roll_chunk.
 //
-// What bounds it on the H100: almost nothing is computed (integer adds,
-// shifts, f32 adds and compares per step); the cost is the visit list it
-// writes, 13 int32 per ray per step, (C, 13, R) = 32 x 13 x ~9k x 4 B ~ 15 MB
-// per chunk at 1080p, plus launch latency.  One thread per ray keeps the
-// whole DDA state in registers for the chunk's C steps, reads it once and
-// writes it back once; visit field f of step c for ray r is stored at
-// (c * 13 + f) * R + r, so a warp's 32 stores are one contiguous 128-byte
-// line.  At ~9k rays the card is mostly idle (about 70 blocks of 128 threads
-// for 132 SMs); that is accepted for this first, exact version.
+// What bounds it on the H100: the serial chain of each ray's C steps, not
+// bytes.  A step is ~40 integer/f32 operations, each depending on the last
+// (the LOD switch, the in-world test, the step, the far-clip retire), and
+// the closed form tmax + n * tdelta is not bit-equal to repeated adds, so a
+// ray's steps cannot be split among lanes.  Per step it writes its 13-field
+// visit record, (C, 13, Rk) int32 in all (5.8 MB at C 32 and 3,261 rays):
+// field f of step c for ray slot t is stored at (c * 13 + f) * Rk + t, so a
+// warp's 32 stores are one contiguous 128-byte line.  At 3,261-9,088 rays
+// every ray is resident at once and the launch takes as long as one ray's
+// chain plus the stores.  The design works on everything around the chain:
+//  - blocks of kBlock = 32 threads, one warp: 3,261 rays make 102 blocks, so
+//    the rays and their stores spread over most of the card's 132 SMs (the
+//    first design's 128-thread blocks put them on 26-71 SMs);
+//  - the LOD distances (at most kMaxLods) are read into registers once, and
+//    the distance of the ray's current LOD is held in a register that only
+//    an LOD switch updates (an unrolled select), where the first design
+//    loaded lod_dist[lod] from memory on every step;
+// bench/roll_variants.py builds the kernel with each of these turned back
+// (kBlock, kLodRegisters), with the first design's settings, and without
+// the visit stores (kStoreVisits 0, a diagnostic: the visits are not
+// written), and times them on the card (PERF.md).  Reading the state pairs
+// as 8-byte words timed no faster, so they stay 4-byte words.
 //
 // Live-ray index: with `index` (ascending int32, Rk entries) thread t rolls
 // ray index[t] and writes visit field f of step c at (c * 13 + f) * Rk + t,
@@ -31,8 +44,24 @@
 namespace {
 
 constexpr int kNVF = 13;
+constexpr int kBlock = 32;         // threads a block
+constexpr int kMaxLods = 8;        // LOD distances held in registers
+constexpr int kLodRegisters = 1;   // 0: load lod_dist[lod] every step
+constexpr int kStoreVisits = 1;    // 0: no visit stores (diagnostic only)
 
-__global__ void roll_chunk_kernel(
+// lod_dist[clamp(lv, 0, nld - 1)] from the registers: an unrolled select,
+// so the table never leaves them
+__device__ __forceinline__ float lod_threshold(const float (&d)[kMaxLods],
+                                               int nld, int lv) {
+  const int lc = min(max(lv, 0), nld - 1);
+  float v = d[0];
+#pragma unroll
+  for (int k = 1; k < kMaxLods; ++k)
+    if (lc == k) v = d[k];
+  return v;
+}
+
+__global__ void __launch_bounds__(kBlock) roll_chunk_kernel(
     int* __restrict__ pos, float* __restrict__ tmax,
     float* __restrict__ tdelta, int* __restrict__ stp,
     float* __restrict__ ids, int* __restrict__ lod,
@@ -47,17 +76,24 @@ __global__ void roll_chunk_kernel(
   float tdx = tdelta[2 * r], tdz = tdelta[2 * r + 1];
   int spx = stp[2 * r], spz = stp[2 * r + 1];
   float i0 = ids[2 * r], i1 = ids[2 * r + 1];
+  const float dx = dirs[2 * r], dz = dirs[2 * r + 1];
   int lv = lod[r];
   bool al = alive[r] != 0;
-  const float dx = dirs[2 * r], dz = dirs[2 * r + 1];
+  float d[kMaxLods];
+#pragma unroll
+  for (int k = 0; k < kMaxLods; ++k)
+    d[k] = (kLodRegisters && k < nld) ? lod_dist[k] : 0.0f;
+  float thr = kLodRegisters ? lod_threshold(d, nld, lv) : 0.0f;
 
-  for (int c = 0; c < C; ++c) {
+  int* v = visits + t;
+  for (int c = 0; c < C; ++c, v += kNVF * Rk) {
     // pre-switch snapshot (the gated march's rewind anchor)
     const int p_px = px, p_pz = pz, p_lv = lv;
     const float p_tmx = tmx, p_tmz = tmz, p_i0 = i0, p_i1 = i1;
 
-    const int lc = min(max(lv, 0), nld - 1);
-    if (al && i0 >= lod_dist[lc]) {  // NextLOD (SegmentDDAData.cs:31-73)
+    const float ld =
+        kLodRegisters ? thr : lod_dist[min(max(lv, 0), nld - 1)];
+    if (al && i0 >= ld) {  // NextLOD (SegmentDDAData.cs:31-73)
       const int vsize = 1 << lv;
       const int mask2 = 2 * vsize - 1;
       const int rx = px & mask2, rz = pz & mask2;
@@ -79,23 +115,25 @@ __global__ void roll_chunk_kernel(
       spx *= 2;
       spz *= 2;
       lv += 1;
+      if (kLodRegisters) thr = lod_threshold(d, nld, lv);
     }
     al = al && px >= 0 && px < X && pz >= 0 && pz < Z;
 
-    int* v = visits + static_cast<size_t>(c) * kNVF * Rk + t;
-    v[0 * Rk] = px;
-    v[1 * Rk] = pz;
-    v[2 * Rk] = __float_as_int(i0);
-    v[3 * Rk] = __float_as_int(i1);
-    v[4 * Rk] = lv;
-    v[5 * Rk] = al ? 1 : 0;
-    v[6 * Rk] = p_px;
-    v[7 * Rk] = p_pz;
-    v[8 * Rk] = __float_as_int(p_tmx);
-    v[9 * Rk] = __float_as_int(p_tmz);
-    v[10 * Rk] = __float_as_int(p_i0);
-    v[11 * Rk] = __float_as_int(p_i1);
-    v[12 * Rk] = p_lv;
+    if (kStoreVisits) {
+      v[0 * Rk] = px;
+      v[1 * Rk] = pz;
+      v[2 * Rk] = __float_as_int(i0);
+      v[3 * Rk] = __float_as_int(i1);
+      v[4 * Rk] = lv;
+      v[5 * Rk] = al ? 1 : 0;
+      v[6 * Rk] = p_px;
+      v[7 * Rk] = p_pz;
+      v[8 * Rk] = __float_as_int(p_tmx);
+      v[9 * Rk] = __float_as_int(p_tmz);
+      v[10 * Rk] = __float_as_int(p_i0);
+      v[11 * Rk] = __float_as_int(p_i1);
+      v[12 * Rk] = p_lv;
+    }
 
     // Step (SegmentDDAData.cs:135-150)
     const bool x_first = tmx < tmz;
@@ -136,8 +174,7 @@ extern "C" int cpuvox_roll_chunk(void* pos, void* tmax, void* tdelta,
                                  void* index, int Rk, void* visits,
                                  void* stream) {
   if (Rk > 0) {
-    const int threads = 128;
-    roll_chunk_kernel<<<(Rk + threads - 1) / threads, threads, 0,
+    roll_chunk_kernel<<<(Rk + kBlock - 1) / kBlock, kBlock, 0,
                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<int*>(pos), static_cast<float*>(tmax),
         static_cast<float*>(tdelta), static_cast<int*>(stp),

@@ -49,7 +49,3 @@ extern "C" int cpuvox_sample_raybuffer(void* rb, int R, int PL, void* ri,
   }
   return static_cast<int>(cudaGetLastError());
 }
-
-extern "C" const char* cpuvox_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}

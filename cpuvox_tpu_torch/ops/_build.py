@@ -1,9 +1,10 @@
 """Build the CUDA kernels on first use and bind them with ctypes.
 
-All ``cpuvox_tpu_torch/csrc/*.cu`` sources compile in one ``nvcc`` call into
-one shared library with a plain C interface (no PyTorch headers: seconds, not
-minutes).  The library lands in ``csrc/build/``, named by a hash of the
-sources, so an edited source is rebuilt and an unchanged one is reused.
+All ``cpuvox_tpu_torch/csrc/*.cu`` sources compile into one shared library
+with a plain C interface (no PyTorch headers: seconds, not minutes), one
+``nvcc`` a source, all started together, then one link.  The library lands
+in ``csrc/build/``, named by a hash of the sources, so an edited source is
+rebuilt and an unchanged one is reused.
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` raises on a non-zero code.
 
@@ -23,8 +24,9 @@ import threading
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+COMPILE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = [*COMPILE_FLAGS, "-shared"]  # sources straight to a library
 
 _lock = threading.Lock()
 _lib = None
@@ -52,6 +54,21 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libcpuvox_kernels_{h.hexdigest()[:12]}.so")
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise if any fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, p in procs:
+        out = p.communicate()[0]
+        if p.returncode:
+            failed.append(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n"
+                          f"{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> str:
     """Compile the kernels if this source set has not been built yet;
     returns the library path."""
@@ -59,18 +76,17 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    tmp = tempfile.mkdtemp(dir=BUILD_DIR)
     try:
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n"
-                               f"{r.stdout}\n{r.stderr}")
-        os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+        objs = [os.path.join(tmp, os.path.basename(src) + ".o")
+                for src in sources()]
+        _run_all([[_nvcc(), *COMPILE_FLAGS, "-c", "-o", obj, src]
+                  for obj, src in zip(objs, sources())])
+        lib = os.path.join(tmp, "lib.so")
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-o", lib, *objs]])
+        os.replace(lib, out)  # atomic: a concurrent build sees all or nothing
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 

@@ -1,25 +1,138 @@
-"""Kernel 3: the phase-2 raybuffer sample (``csrc/sample.cu``).
+"""Kernel 3: phase 2, the screen from the raybuffer (``csrc/reproject.cu``).
 
-Replaces ``cpuvox_tpu/ops/reproject_kernel.py::sample_raybuffer``: one CUDA
-thread per output element, ``out[i, j] = rb[clamp(ri[i, j]), j]`` where
-``mask[i, j]`` is set, else -1.  Any (NI, NJ) with NJ <= PL is accepted: the
-(8, 128) padding was a TPU tiling rule.  ``reproject_sample`` runs the two
-passes of ``reproject_kernel.py:104-124``: left/right segments sample
-texel = x, top/down segments texel = y through the transposed maps.
+Replaces ``cpuvox_tpu/ops/reproject_kernel.py::sample_raybuffer`` and the
+XLA steps around it in the reference's frame.  ``reproject_screen`` is the
+frame's (``Renderer.phase2``): one CUDA launch that computes each output
+pixel's render pixel (the nearest upscale), its segment and raybuffer row
+(``render/reproject.py::segment_ray_index``), samples the raybuffer and, in
+index mode, resolves the color (``raymarch.resolve_colors``).  The segment
+tables ride in the kernel's parameters: nothing is copied to the card.  Its
+plain version, ``reproject_screen_ref``, runs those steps in eager torch.
+
+``sample_raybuffer`` is the previous design's kernel, off every path and
+timed against the fused kernel by ``chip_smoke.py`` (and, with the torch
+steps around it, ``reproject_screen_two_pass``): one CUDA thread per element,
+``out[i, j] = rb[clamp(ri[i, j]), j]`` where ``mask[i, j]`` is set, else
+-1, on maps that torch computes (``reproject_sample`` runs its two passes,
+``reproject_kernel.py:104-124``: left/right segments sample texel = x,
+top/down segments texel = y through the transposed maps).  Any (NI, NJ)
+with NJ <= PL is accepted: the (8, 128) padding was a TPU tiling rule.
+
+Each wrapper takes its plain version for CPU tensors and launches its
+kernel for CUDA tensors.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
+
+from cpuvox_tpu_torch.render import raymarch as rm
+from cpuvox_tpu_torch.render import reproject
 
 from . import _build
 
-launches = 0  # kernel launches since the last reset (plain calls not counted)
+# kernel launches since the last reset (plain calls not counted): the fused
+# phase-2 kernel's, and the previous design's
+launches = 0
+sample_launches = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P, _I, _I, _P, _P, _I, _I, _P, _P]
+_SAMPLE_ARGTYPES = [_P, _I, _I, _P, _P, _I, _I, _P, _P]
+
+
+class SegmentTables(ctypes.Structure):
+    """``csrc/reproject.cu``'s ``SegmentTables``, passed by value."""
+
+    _fields_ = ([(k, ctypes.c_float * 4)
+                 for k in ("ax", "ay", "bx", "by", "cx", "cy")]
+                + [(k, ctypes.c_int * 4)
+                   for k in ("ray_count", "ray_base", "active")])
+
+
+_SCREEN_ARGTYPES = [_P, _I, _I, SegmentTables, _I, _I, _I, _I, _I, _P, _I,
+                    _I, _P, _P]
+
+
+def segment_tables(tables) -> SegmentTables:
+    """``reproject_tables``' arrays as the kernel's struct: the f32 words as
+    they are, the ints and the active flags as int32."""
+    a, b, c = (np.asarray(tables[k], np.float32)
+               for k in ("tri_a", "tri_b", "tri_c"))
+    floats = {"ax": a[:, 0], "ay": a[:, 1], "bx": b[:, 0], "by": b[:, 1],
+              "cx": c[:, 0], "cy": c[:, 1]}
+    ints = {k: np.asarray(tables[k]).astype(np.int32)
+            for k in ("ray_count", "ray_base", "active")}
+    return SegmentTables(
+        **{k: (ctypes.c_float * 4)(*v.tolist()) for k, v in floats.items()},
+        **{k: (ctypes.c_int * 4)(*v.tolist()) for k, v in ints.items()})
+
+
+def _torch_phase2(sample_kernel: bool, raybuf, tables, rw, rh, width,
+                  height, colors, skybox):
+    screen = reproject.reproject(raybuf, tables, rw, rh, skybox=skybox,
+                                 kernels=sample_kernel)
+    if colors is not None:
+        screen = rm.resolve_colors(screen, colors)
+    if (width, height) != (rw, rh):
+        dev = screen.device
+        ys = (torch.arange(height, dtype=torch.int64, device=dev) * rh) // height
+        xs = (torch.arange(width, dtype=torch.int64, device=dev) * rw) // width
+        screen = screen[ys][:, xs]
+    return screen
+
+
+def reproject_screen_ref(raybuf, tables, rw: int, rh: int, width: int,
+                         height: int, colors=None, skybox: int = 0):
+    """Phase 2 in plain torch: the (rh, rw) reprojection of the (R, P)
+    raybuffer (``render/reproject.py::reproject`` with the plain sample; all
+    ``skybox`` when no segment is active), in index mode (``colors`` given)
+    the color resolve, and the nearest upscale to (height, width)
+    (``cpuvox_tpu/render/frame.py:117-123``).  Returns (height, width)
+    int32 ARGB bits."""
+    return _torch_phase2(False, raybuf, tables, rw, rh, width, height,
+                         colors, skybox)
+
+
+def reproject_screen_two_pass(raybuf, tables, rw: int, rh: int, width: int,
+                              height: int, colors=None, skybox: int = 0):
+    """The previous design of phase 2, off every path: ``reproject_screen_ref``
+    with the two-pass sample kernel in place of the plain sample."""
+    return _torch_phase2(True, raybuf, tables, rw, rh, width, height, colors,
+                         skybox)
+
+
+def reproject_screen(raybuf, tables, rw: int, rh: int, width: int,
+                     height: int, colors=None, skybox: int = 0):
+    """``reproject_screen_ref`` in one launch of the fused kernel."""
+    global launches
+    if not raybuf.is_cuda:
+        return reproject_screen_ref(raybuf, tables, rw, rh, width, height,
+                                    colors, skybox)
+    R, P = raybuf.shape
+    if max(rw, rh) > P:
+        raise ValueError(f"render size {rw}x{rh} exceeds the raybuffer's "
+                         f"{P} texels")
+    if max(width * rw, height * rh) >= 2**31:
+        raise ValueError(f"the upscale {rw}x{rh} -> {width}x{height} "
+                         "overflows the kernel's int32 pixel map")
+    g = _build.require
+    p_rb = g(raybuf, torch.int32, (R, P), "raybuf")
+    p_colors, n_colors = None, 0
+    if colors is not None:
+        p_colors = g(colors, torch.int32, None, "colors")
+        n_colors = colors.shape[0]
+    out = torch.empty((height, width), dtype=torch.int32, device=raybuf.device)
+    fn = _build.function("cpuvox_reproject_screen", _SCREEN_ARGTYPES)
+    code = fn(p_rb, R, P, segment_tables(tables),
+              int(np.asarray(tables["active"]).any()), rw, rh, width, height,
+              p_colors, n_colors, int(skybox), out.data_ptr(),
+              _build.stream_ptr(out))
+    _build.check(code, "cpuvox_reproject_screen")
+    launches += 1
+    return out
 
 
 def sample_raybuffer_ref(rb, ri, mask):
@@ -32,7 +145,7 @@ def sample_raybuffer_ref(rb, ri, mask):
 
 def sample_raybuffer(rb, ri, mask):
     """``out[i, j] = rb[ri[i, j], j]`` where ``mask`` is set, else -1."""
-    global launches
+    global sample_launches
     if not rb.is_cuda:
         return sample_raybuffer_ref(rb, ri, mask)
     R, PL = rb.shape
@@ -44,11 +157,11 @@ def sample_raybuffer(rb, ri, mask):
     p_ri = g(ri, torch.int32, (NI, NJ), "ri")
     p_m = g(mask, torch.int32, (NI, NJ), "mask")
     out = torch.empty((NI, NJ), dtype=torch.int32, device=rb.device)
-    fn = _build.function("cpuvox_sample_raybuffer", _ARGTYPES)
+    fn = _build.function("cpuvox_sample_raybuffer", _SAMPLE_ARGTYPES)
     code = fn(p_rb, R, PL, p_ri, p_m, NI, NJ, out.data_ptr(),
               _build.stream_ptr(out))
     _build.check(code, "cpuvox_sample_raybuffer")
-    launches += 1
+    sample_launches += 1
     return out
 
 
@@ -60,9 +173,9 @@ def _two_passes(sample, raybuf_idx, seg_id, ray_idx):
 
 
 def reproject_sample(raybuf_idx, seg_id, ray_idx):
-    """Both reprojection passes through the kernel wrapper: the (H, W) int32
-    sampled color-index screen (``reproject_kernel.py:104``; no padding, so
-    no crop to width and height)."""
+    """Both reprojection passes through the previous design's kernel: the
+    (H, W) int32 sampled color-index screen (``reproject_kernel.py:104``; no
+    padding, so no crop to width and height)."""
     return _two_passes(sample_raybuffer, raybuf_idx, seg_id, ray_idx)
 
 

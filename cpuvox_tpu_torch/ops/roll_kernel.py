@@ -1,7 +1,8 @@
 """Kernel 1: the content-independent DDA chunk roll (``csrc/roll.cu``).
 
 Replaces ``cpuvox_tpu/ops/roll_kernel.py::roll_chunk_pallas``.  One CUDA
-thread per ray keeps the DDA state in registers for the chunk's C steps and
+thread per ray, in blocks of one warp, keeps the DDA state and the LOD
+distances (at most ``MAX_LODS``) in registers for the chunk's C steps and
 writes the visit list as (C, 13, R) int32, f32 fields as their bits:
 
   [0] pos_x   [1] pos_z   [2] ids0   [3] ids1   [4] lod   [5] valid
@@ -30,6 +31,8 @@ from cpuvox_tpu_torch.render import raymarch as rm
 from . import _build
 
 launches = 0  # kernel launches since the last reset (plain calls not counted)
+
+MAX_LODS = 8  # csrc/roll.cu's kMaxLods: the LOD distances it holds in registers
 
 roll_chunk_ref = rm._roll_chunk
 
@@ -61,12 +64,16 @@ def roll_chunk(dda: rm.DDAState, alive, dirs, lod_distances, far_clip, dims,
         g(dirs, torch.float32, (R, 2), "dirs"),
         g(lod_distances, torch.float32, None, "lod_distances"),
     ]
+    nld = lod_distances.numel()
+    if not 1 <= nld <= MAX_LODS:
+        raise ValueError(f"{nld} LOD distances: the roll kernel holds 1 to "
+                         f"{MAX_LODS}")
     p_index = (None if index is None
                else g(index, torch.int32, (Rk,), "index"))
     visits = torch.empty((chunk, rm.NVF, Rk), dtype=torch.int32,
                          device=dda.pos.device)
     fn = _build.function("cpuvox_roll_chunk", _ARGTYPES)
-    code = fn(*ptrs, lod_distances.numel(), float(np.float32(far_clip)),
+    code = fn(*ptrs, nld, float(np.float32(far_clip)),
               int(dims[0]), int(dims[2]), chunk, p_index, Rk,
               visits.data_ptr(), _build.stream_ptr(visits))
     _build.check(code, "cpuvox_roll_chunk")

@@ -3,11 +3,13 @@
 Per frame: camera + vanishing-point segments on the host (numpy), ray init
 on the host (``ray_init``) or with ``host_init=False`` on the device
 (``device_init``), the phase-1 march (over a live-ray index where the
-Renderer was created with ``compact=True``), phase-2 reprojection in
-color-index space, the color resolve of the screen's pixels, and the nearest upscale of a
-``render_scale`` frame.  The march is the dense one (roll -> fetch ->
-rasterize per chunk) or, where ``occupancy_on`` resolves true, the
-occupancy-gated one (``raymarch.march_gated``); both give the same raybuffer.
+Renderer was created with ``compact=True``), and phase 2: the reprojection
+in color-index space, the color resolve of the screen's pixels and the
+nearest upscale of a ``render_scale`` frame, with the kernels one launch
+(``ops/reproject_kernel.reproject_screen``).  The march is the dense one
+(roll -> fetch -> rasterize per chunk) or, where ``occupancy_on`` resolves
+true, the occupancy-gated one (``raymarch.march_gated``); both give the
+same raybuffer.
 In ARGB mode (``argb_records`` on a world whose columns hold few enough
 voxels, ``argb_on``) the records carry the columns' colors, phase 1 writes
 final colors and phase 2 samples them with no resolve.
@@ -236,30 +238,30 @@ class Renderer:
         return self.phase2(f, raybuf_idx), raybuf_idx, (
             f.segs, f.ctxs, f.vp_screen, f.cam_data, f.cam)
 
-    def phase2(self, f: FrameSetup, raybuf_idx: torch.Tensor) -> torch.Tensor:
-        """The screen (H, W) int32 ARGB bits from a frame's raybuffer."""
+    def phase2_args(self, f: FrameSetup, raybuf_idx: torch.Tensor) -> tuple:
+        """The arguments of ``ops/reproject_kernel.reproject_screen`` for a
+        frame: the raybuffer, the segment tables, the render and the output
+        size, and in index mode the color table (None in ARGB mode, where
+        phase 1 wrote final colors) and the skybox value."""
         rw, rh = self.render_wh
         if self.argb_on:
-            # phase 1 wrote final colors: sample them and that is the screen
-            screen = reproject.reproject(
-                raybuf_idx, f.tables, rw, rh, kernels=self.kernels,
-                skybox=int(self.device_world.colors[:1].view(np.int32)[0]))
+            colors = None
+            skybox = int(self.device_world.colors[:1].view(np.int32)[0])
         else:
-            # reproject in color-INDEX space, then resolve only the screen's
-            # pixels
-            screen_idx = reproject.reproject(raybuf_idx, f.tables, rw, rh,
-                                             skybox=0, kernels=self.kernels)
-            screen = raymarch.resolve_colors(screen_idx, self._wa.colors)
-        cfg = self.config
-        if (cfg.width, cfg.height) != (rw, rh):
-            # nearest upscale of the scaled render (UnityManager.cs:57-63)
-            dev = screen.device
-            ys = (torch.arange(cfg.height, dtype=torch.int64, device=dev)
-                  * rh) // cfg.height
-            xs = (torch.arange(cfg.width, dtype=torch.int64, device=dev)
-                  * rw) // cfg.width
-            screen = screen[ys][:, xs]
-        return screen
+            colors, skybox = self._wa.colors, 0
+        return (raybuf_idx, f.tables, rw, rh, self.config.width,
+                self.config.height, colors, skybox)
+
+    def phase2(self, f: FrameSetup, raybuf_idx: torch.Tensor) -> torch.Tensor:
+        """The screen (H, W) int32 ARGB bits from a frame's raybuffer: the
+        reprojection at the render size, in index mode the resolve of the
+        screen's color indices, and the nearest upscale of a scaled render
+        (UnityManager.cs:57-63).  With kernels, one launch of the fused
+        phase-2 kernel."""
+        from cpuvox_tpu_torch.ops import reproject_kernel as rk
+
+        fn = rk.reproject_screen if self.kernels else rk.reproject_screen_ref
+        return fn(*self.phase2_args(f, raybuf_idx))
 
     def render(self, cam: cm.Camera, return_raybuffers: bool = False):
         """Render one frame; returns (H, W) uint32 ARGB numpy (row 0 = bottom),

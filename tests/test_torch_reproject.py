@@ -1,5 +1,7 @@
 """The port's phase-2 reprojection and raybuffer sample against the JAX
-package; the CUDA sample kernel against its plain version on the card.
+package; the previous design's CUDA sample kernel (off the frame path since
+the fused phase-2 kernel, ``tests/test_torch_phase2.py``) against its plain
+version on the card.
 Bit-exact throughout.  JAX is imported inside the tests that compare with
 it, so the ``cuda`` tests also run on the card's machine, which has no jax."""
 import numpy as np
@@ -45,10 +47,10 @@ def test_sample_ref_matches_jax_pallas_interpret():
 
 def test_sample_wrapper_takes_plain_version_on_cpu():
     rb, ri, mask = (torch.from_numpy(x) for x in random_sample_inputs())
-    before = trk.launches
+    before = trk.sample_launches
     assert torch.equal(trk.sample_raybuffer(rb, ri, mask),
                        trk.sample_raybuffer_ref(rb, ri, mask))
-    assert trk.launches == before
+    assert trk.sample_launches == before
 
 
 FRAMES = [
@@ -125,10 +127,10 @@ def test_sample_kernel_matches_plain_on_cuda(cuda, shape):
     R, PL, NI, NJ = shape
     rb, ri, mask = (torch.from_numpy(x).to(cuda) for x in
                     random_sample_inputs(R, PL, NI, NJ))
-    before = trk.launches
+    before = trk.sample_launches
     got = trk.sample_raybuffer(rb, ri, mask)
     torch.cuda.synchronize()
-    assert trk.launches == before + 1
+    assert trk.sample_launches == before + 1
     assert torch.equal(got, trk.sample_raybuffer_ref(rb, ri, mask))
 
 

@@ -79,11 +79,15 @@ def jax_visits_as_stack(visits):
     return np.stack(fields, axis=1)
 
 
-def torch_roll(fn, dda, alive, dirs, device="cpu", chunk=16):
+def torch_roll(fn, dda, alive, dirs, device="cpu", chunk=16, index=None,
+               lod_dist=LOD_DIST):
     t = {k: torch.from_numpy(v.copy()).to(device) for k, v in dda.items()}
+    if index is not None:
+        index = torch.from_numpy(index).to(device)
     out = fn(trm.DDAState(**t), torch.from_numpy(alive.copy()).to(device),
              torch.from_numpy(dirs).to(device),
-             torch.from_numpy(LOD_DIST).to(device), float(FAR), DIMS, chunk)
+             torch.from_numpy(lod_dist).to(device), float(FAR), DIMS, chunk,
+             index=index)
     d, a, v = out
     return ({k: getattr(d, k).cpu().numpy() for k in trm.DDAState._fields},
             a.cpu().numpy(), v.cpu().numpy())
@@ -188,3 +192,39 @@ def test_roll_kernel_matches_plain_on_cuda(cuda, state):
     assert roll_kernel.launches == before + 1
     want = torch_roll(roll_kernel.roll_chunk_ref, dda, alive, dirs, cuda)
     assert_same(got, want)  # NaN bits included: both pass the operand's NaN
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", ["adversarial", "frame"])
+@pytest.mark.parametrize("chunk,indexed", [(128, False), (16, True),
+                                           (128, True)])
+def test_roll_kernel_at_chunk_128_and_on_an_index_on_cuda(cuda, state, chunk,
+                                                          indexed):
+    """The gated march's chunk of 128 and a live-ray index (ascending, a
+    third of the rays): visits of the index's rays, and every ray's state."""
+    dda, alive, dirs = adversarial_state() if state == "adversarial" \
+        else frame_state()
+    index = None
+    if indexed:
+        rng = np.random.default_rng(11)
+        R = alive.shape[0]
+        index = np.sort(rng.choice(R, R // 3, replace=False)).astype(np.int32)
+    before = roll_kernel.launches
+    got = torch_roll(roll_kernel.roll_chunk, dda, alive, dirs, cuda, chunk,
+                     index)
+    torch.cuda.synchronize()
+    assert roll_kernel.launches == before + 1
+    want = torch_roll(roll_kernel.roll_chunk_ref, dda, alive, dirs, cuda,
+                      chunk, index)
+    assert got[2].shape == (chunk, trm.NVF, alive.shape[0] if index is None
+                            else index.shape[0])
+    assert_same(got, want)
+
+
+@pytest.mark.cuda
+def test_roll_kernel_refuses_more_lods_than_it_holds_on_cuda(cuda):
+    dda, alive, dirs = adversarial_state()
+    lod_dist = np.arange(1, roll_kernel.MAX_LODS + 2, dtype=np.float32)
+    with pytest.raises(ValueError, match="LOD distances"):
+        torch_roll(roll_kernel.roll_chunk, dda, alive, dirs, cuda,
+                   lod_dist=lod_dist)
