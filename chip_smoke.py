@@ -64,14 +64,37 @@ non-zero (no phase catches its own failure):
    beside each, its previous design on the same inputs (the roll's
    previous constants, the one-thread-a-ray rasterizer and the torch
    column fetch that fed it, the two-pass sample and the torch phase 2
-   around it).
+   around it);
+8. more LOD distances than the roll kernel holds in registers (after 3):
+   the kernel's memory form at 9 distances against the plain roll, rays up
+   to LOD 8, and a 320x180 terrain2048 frame at ``lod_levels`` 9 through
+   the kernels and the plain path, its rays past LOD 7;
+9. the camera-batch rollout (``parallel/batch.py``, ``bench.py:203-251``'s
+   world and 64-camera steps at 256x256, both iteration directions): one
+   step through the kernels == through the plain versions == each
+   camera's single-camera frame; 8 cameras in ARGB mode and 8 on a gated
+   256x128x256 layered world against their single frames; the batched
+   phase-2 kernel and a launch of the single-camera kernel a camera, each
+   against the plain phase 2 camera by camera, timed side by side; cams/s
+   with compaction off and on in turns, launches a step, a step's device
+   busy share;
+10. the dynamic worlds (``world/dynamic.py``, ``bench.py:254-282``): the
+   512x128x512 surface world rebuilt on the card == the same build on the
+   CPU, every field, with ``exact_lod1`` off and on; a 1280x720 frame
+   through the kernels == the plain path; 12 timed frames (fps, the
+   rebuild's and the render's ms) for each setting; an editable 64^3 world
+   after three ``set_voxel_column`` edits and a chain snapshot, card == CPU
+   word for word, its frames through the kernels == plain.
 
 The three flythrough Renderers are created with ``compact=True`` (the march
 on a live-ray index; the Renderer's default is the full-width march, which
 the oracle check, the split-layout frame and a variant of each small frame
-run).  Kernel launch counts are set to 0 just before each flythrough and read just
-after it; launches made to compare or time a kernel are not counted.  The
-last lines are the card line, one JSON line of kernels, and
+run).  Kernel launch counts are set to 0 just before each flythrough, the
+rollout's first timed run and the dynamic terrain's (``exact_lod1`` off)
+timed run, and read just after it; launches made to compare or time a
+kernel are not counted.  The last lines are the card line, one JSON line of
+kernels (``launches_by_path`` per path; the batched phase 2,
+``reproject_screens``, has its own entry), and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -727,6 +750,400 @@ def flythrough(renderer, scene: str, card: str, gated: bool):
     return dict(zip([k[0] for k in KERNELS], launches)), metrics, gstats
 
 
+def check_lods_past_8(renderer, stats: dict) -> None:
+    """More LOD distances than the roll kernel holds in registers: the
+    kernel's memory form at 9 distances against the plain roll (rays up to
+    LOD 8), and one 320x180 frame at ``lod_levels`` 9 through the kernels
+    against the plain path, rays of the frame past LOD 7."""
+    from cpuvox_tpu_torch.ops import roll_kernel
+
+    dda, alive, dirs, _lods, far, dims, _c = adversarial_roll_state(
+        renderer.device)
+    lods = torch.arange(1, 10, dtype=torch.float32, device=renderer.device)
+    got, want = roll_both(dda, alive, dirs, lods, far, dims, 48)
+    compare("roll_chunk", got, want, stats)
+    top = int(got[-1][:, 4].max())
+    if top < 8:
+        raise AssertionError(f"the roll at 9 LOD distances reached LOD {top}")
+    seen = []
+    kernel = roll_kernel.roll_chunk
+
+    def spy(*a, **kw):
+        out = kernel(*a, **kw)
+        seen.append(out[2][:, 4].max())
+        return out
+
+    roll_kernel.roll_chunk = spy
+    try:
+        kw = {"lod_levels": 9, "lod_error": 64.0}
+        check_small_frame(renderer, "lod9", [
+            ("kernels", kw, None, True),
+            ("plain", {**kw, "backend": "xla"}, None, True)], stats)
+    finally:
+        roll_kernel.roll_chunk = kernel
+    frame_top = int(torch.stack(seen).max())
+    if frame_top < 8:
+        raise AssertionError(f"the lod_levels 9 frame reached LOD {frame_top}")
+    log(f"[lod9] roll_chunk at 9 LOD distances (the memory form) == plain on "
+        f"the adversarial state at C=48, rays up to LOD {top}, 0 elements "
+        f"differ; the lod_levels 9 frame's rays reached LOD {frame_top}")
+
+
+ROLLOUT_WH = (256, 256)
+N_ROLLOUT_CAMS = 64
+
+
+def check_batch_singles(renderer, cams, tag: str, stats: dict):
+    """The camera batch through the kernels against each camera's own
+    frame; returns the batch."""
+    from cpuvox_tpu_torch.parallel.batch import render_camera_batch
+    from cpuvox_tpu_torch.render.raymarch import MAGENTA_I32
+
+    got = render_camera_batch(renderer, cams)
+    compare(f"{tag} batch, single frames", [got],
+            [torch.stack([renderer.render_device(c)[0] for c in cams])],
+            stats)
+    if int((got == MAGENTA_I32).sum()):
+        raise AssertionError(f"[{tag}] magenta pixels in the batch")
+    return got
+
+
+def rollout_work(renderer, args):
+    """``phase2_work`` of every camera of a batched phase-2 call."""
+    raybuf, tables, R1, rw, rh, W, H, colors, sky = args
+    nbytes = nops = 0
+    for b, t in enumerate(tables):
+        one = (raybuf[b * R1:(b + 1) * R1], t, rw, rh, W, H, colors, sky)
+        w = phase2_work(one, sample_maps(renderer, t))
+        nbytes += w[0]
+        nops += w[1]
+    return nbytes, nops
+
+
+def check_rollout(card: str, stats: dict) -> dict:
+    """The RL-rollout mode (``parallel/batch.py``): ``bench.py``'s rollout
+    world and 64-camera steps at 256x256 (``bench/harness.py``).  The batch
+    through the kernels == the batch through the plain versions == each
+    camera's single-camera frame; 8 cameras in ARGB mode and 8 on a gated
+    layered world against their single frames; both phase-2 variants
+    against the plain phase 2 camera by camera, timed side by side; then
+    cams/s compacted and not in turns, launches a step, and a step's device
+    busy share.  The rollout path's kernel counts are set to 0 just before
+    its first timed run and read just after it."""
+    from cpuvox_tpu_torch.bench import harness
+    from cpuvox_tpu_torch.bench.breakdown import device_activities, union_us
+    from cpuvox_tpu_torch.config import RenderConfig
+    from cpuvox_tpu_torch.models import procedural
+    from cpuvox_tpu_torch.ops import phase1_kernel, roll_kernel
+    from cpuvox_tpu_torch.ops import reproject_kernel as rk
+    from cpuvox_tpu_torch.parallel import batch
+    from cpuvox_tpu_torch.render.frame import Renderer
+
+    t0 = time.perf_counter()
+    r = harness.rollout_renderer(ROLLOUT_WH)
+    dw = r.device_world
+    if r.occupancy_on or dw.max_runs != 3:
+        raise AssertionError(f"rollout world: gate {r.occupancy_on}, "
+                             f"max_runs {dw.max_runs}")
+    cams = harness.rollout_cameras(1, N_ROLLOUT_CAMS, ROLLOUT_WH, dw.dims)
+    frames = [r.frame_geometry(c) for c in cams]
+    n_up = sum(f.iteration_direction < 0 for f in frames)
+    log(f"[rollout] world {dw.dims} up in {time.perf_counter() - t0:.1f} s "
+        f"({dw.lod0_voxels} LOD0 voxels, max_runs {dw.max_runs}, gate off); "
+        f"{N_ROLLOUT_CAMS} cameras at {ROLLOUT_WH[0]}x{ROLLOUT_WH[1]}, "
+        f"{N_ROLLOUT_CAMS - n_up} looking down and {n_up} up, R1 "
+        f"{r.ray_capacity} rays a camera")
+    if not 0 < n_up < N_ROLLOUT_CAMS:
+        raise AssertionError("the rollout step holds one iteration direction")
+
+    # the step three ways
+    t0 = time.perf_counter()
+    kb = check_batch_singles(r, cams, "rollout", {})
+    torch.cuda.synchronize()
+    t_k = time.perf_counter() - t0
+    plain = dataclasses.replace(r, config=dataclasses.replace(
+        r.config, backend="xla"), compact=True)
+    t0 = time.perf_counter()
+    pb = batch.render_camera_batch(plain, cams)
+    torch.cuda.synchronize()
+    t_p = time.perf_counter() - t0
+    compare("rollout batch, plain", [kb], [pb], {})
+    log(f"[rollout] one step of {N_ROLLOUT_CAMS} cameras: the batch through "
+        f"the kernels == the batch through the plain versions (compacted, "
+        f"{t_p:.1f} s) == the {N_ROLLOUT_CAMS} single-camera kernel frames "
+        f"({t_k:.2f} s with the batch, cold), index mode, 0 pixels differ, "
+        "0 magenta")
+
+    ra = harness.rollout_renderer(ROLLOUT_WH, argb_records=True)
+    if not ra.argb_on:
+        raise AssertionError("the rollout world did not engage ARGB mode")
+    check_batch_singles(ra, cams[:8], "rollout ARGB", {})
+    mcc = ra.device_world.max_col_colors
+    del ra
+    gdims = (256, 128, 256)
+    rg = Renderer.create(
+        procedural.layered_world(dims=gdims, seed=99, lod_levels=6),
+        RenderConfig(width=ROLLOUT_WH[0], height=ROLLOUT_WH[1],
+                     occupancy_gate="on"), device=r.device, compact=True)
+    if not rg.occupancy_on:
+        raise AssertionError("the layered world's gate resolved off")
+    gcams = harness.rollout_cameras(2, 8, ROLLOUT_WH, gdims)
+    check_batch_singles(rg, gcams, "rollout gated", {})
+    log(f"[rollout] 8 cameras in ARGB mode (max_col_colors {mcc}) and 8 "
+        f"on a gated layered {gdims} world (max_runs "
+        f"{rg.device_world.max_runs}): each batch == its single-camera "
+        "kernel frames, 0 pixels differ, 0 magenta")
+    del rg
+
+    # phase 2 of the looking-down group, both variants
+    group = [f for f in frames if f.iteration_direction > 0]
+    args = batch.phase2_group_args(r, batch.march_group(r, group, 1), group)
+    want = rk.reproject_screens_ref(*args)
+    compare("reproject_screens", [rk.reproject_screens(*args)], [want], stats)
+    compare("reproject_screen", [rk.reproject_screens_per_camera(*args)],
+            [want], stats)
+    p2 = {}
+    for name, fn in (("batched", rk.reproject_screens),
+                     ("per camera", rk.reproject_screens_per_camera)):
+        time_ms(lambda _: fn(*args), 3)  # warm
+        p2[name] = {"ms": time_ms(lambda _: fn(*args), 20),
+                    "device_ms": device_ms(lambda _: fn(*args),
+                                           lambda: None, 4)}
+    p2["plain_ms"] = time_ms(lambda _: rk.reproject_screens_ref(*args), 3)
+    work = rollout_work(r, args)
+    p2["bound_ms"], p2["bound_by"] = bound(*work)
+    p2["bytes"], p2["operations"] = int(work[0]), int(work[1])
+    log(f"[rollout] phase 2 of {len(group)} cameras ({args[0].shape[0]} "
+        f"rays x {args[0].shape[1]} texels): reproject_screens (one launch) "
+        f"{p2['batched']['ms']:.4f} ms a call, "
+        f"{p2['batched']['device_ms']:.4f} ms on the device; "
+        f"reproject_screen a camera ({len(group)} launches) "
+        f"{p2['per camera']['ms']:.4f} ms a call, "
+        f"{p2['per camera']['device_ms']:.4f} ms on the device; plain "
+        f"{p2['plain_ms']:.4f} ms; bound {p2['bound_ms']:.4f} ms "
+        f"({p2['bound_by']}: {p2['bytes']} B); both == plain camera by "
+        f"camera, 0 pixels differ ({card})")
+
+    # the timed runs: compaction off (the Renderer's default, the path's
+    # launch counts) and on, in turns
+    runs = {False: [], True: []}
+    for k, compact in enumerate((False, True, True, False)):
+        rr = dataclasses.replace(r, compact=compact)
+        if k == 0:
+            for m in (roll_kernel, phase1_kernel, rk):
+                m.launches = 0
+            rk.screens_launches = 0
+        m = harness.run_rollout(rr, N_ROLLOUT_CAMS, log=log)
+        if k == 0:
+            launches = {"roll_chunk": roll_kernel.launches,
+                        "rasterize_visits": phase1_kernel.launches,
+                        "reproject_screen": rk.launches,
+                        "reproject_screens": rk.screens_launches}
+        if m["magenta_pixels"]:
+            raise AssertionError("[rollout] magenta pixels in the timed run")
+        runs[compact].append(m)
+    if min(launches["roll_chunk"], launches["rasterize_visits"],
+           launches["reproject_screens"]) <= 0 or launches["reproject_screen"]:
+        raise AssertionError(f"[rollout] launches {launches}: a kernel of "
+                             "the path did not run, or phase 2 ran a camera "
+                             "at a time")
+    cps = {c: [m["cams_per_sec"] for m in v] for c, v in runs.items()}
+    per_step = runs[False][0]["launches_per_step"]
+
+    # a step's device busy share: the union of its device activities under
+    # the profiler over the same step's unprofiled wall; and where a step's
+    # host time goes, each stage synced
+    step = harness.rollout_cameras(9, N_ROLLOUT_CAMS, ROLLOUT_WH, dw.dims)
+    walls = []
+    stages = {"setup": [], "ray init": [], "march": [], "phase 2": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch.render_camera_batch(r, step)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        t = {k: 0.0 for k in stages}
+        t0 = time.perf_counter()
+        sframes = [r.frame_geometry(c) for c in step]
+        t["setup"] += time.perf_counter() - t0
+        for d in (1, -1):
+            g = [f for f in sframes if f.iteration_direction == d]
+            t0 = time.perf_counter()
+            rays = batch._group_rays_host(r, g)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cam_y = np.repeat(np.asarray([f.cam_data.position[1] for f in g],
+                                         np.float32), r.ray_capacity)
+            rb = r.march_rays(*rays, g[0].cam_data, cam_y, d)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            batch.phase2_group(r, rb, g)
+            torch.cuda.synchronize()
+            t["ray init"] += t1 - t0
+            t["march"] += t2 - t1
+            t["phase 2"] += time.perf_counter() - t2
+        for k, v in t.items():
+            stages[k].append(v * 1e3)
+    log(f"[rollout] where a step's time goes (each stage synced, medians of "
+        f"3): " + ", ".join(f"{k} {np.median(v):.3f} ms"
+                             for k, v in stages.items())
+        + f"; whole step {np.median(walls):.3f} ms ({card})")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        batch.render_camera_batch(r, step)
+        torch.cuda.synchronize()
+    dev = device_activities(prof)
+    if not dev:
+        raise AssertionError("the profiler recorded no device activity")
+    busy_ms = union_us((a, b) for _n, a, b in dev) / 1e3
+    wall_ms = float(np.median(walls))
+    log(f"[rollout] cams/s at {N_ROLLOUT_CAMS} cameras, 4 steps a run, runs "
+        f"in turns (off, on, on, off): compaction off "
+        f"{cps[False][0]:.2f}, {cps[False][1]:.2f}; on {cps[True][0]:.2f}, "
+        f"{cps[True][1]:.2f}; launches a step (off): roll "
+        f"{per_step['roll_chunk']:.1f}, rasterize "
+        f"{per_step['rasterize_visits']:.1f}, phase 2 "
+        f"{per_step['reproject_screens']:.1f}; a step's device busy "
+        f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall: busy share "
+        f"{busy_ms / wall_ms:.4f} ({len(dev)} device activities) ({card})")
+    return {"launches": launches, "cams_per_sec": cps, "phase2": p2,
+            "busy_share": busy_ms / wall_ms, "step_ms": wall_ms,
+            "stages_ms": {k: float(np.median(v)) for k, v in stages.items()}}
+
+
+def check_dynamic(card: str, stats: dict) -> dict:
+    """Dynamic worlds (``world/dynamic.py``, ``models/dynamic_demo.py``):
+    the rebuilt arrays on the card == the same build on the CPU, field by
+    field, for the 512 x 128 x 512 surface world (both ``exact_lod1``
+    settings) and an editable world after ``set_voxel_column`` edits and a
+    chain snapshot; a 1280x720 frame through the kernels == the plain path;
+    then ``bench.py``'s timed run (12 frames, 3 where a frame takes over
+    2 s).  The path's kernel counts are set to 0 just before the
+    ``exact_lod1=False`` timed run (the demo's setting) and read after."""
+    from cpuvox_tpu_torch.bench import harness
+    from cpuvox_tpu_torch.config import RenderConfig
+    from cpuvox_tpu_torch.ops import phase1_kernel, roll_kernel
+    from cpuvox_tpu_torch.ops import reproject_kernel as rk
+    from cpuvox_tpu_torch.render.raymarch import MAGENTA_I32
+    from cpuvox_tpu_torch.world import dynamic as td
+
+    fields = ("col_base", "grid_z", "col_rec", "runs", "runs_rev", "colors")
+    dev = torch.device("cuda", 0)
+    out = {}
+    for exact in (False, True):
+        t0 = time.perf_counter()
+        d = harness.dynamic_terrain(exact_lod1=exact)
+        t_create = time.perf_counter() - t0
+        spec = d.spec
+        built = []
+        for base in (d.base_top, d.base_top.cpu()):
+            top = td.animate_heights(spec, base, 0.3)
+            wa = td.build_surface_world_arrays(spec, top,
+                                               td.terrain_colors(spec, top))
+            built.append([getattr(wa, k).to(dev) for k in fields])
+        compare(f"dynamic arrays, exact_lod1 {exact}", built[0], built[1], {})
+        cam = harness.dynamic_camera(spec.dims)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        screen = d.render_frame(0.3, cam)
+        torch.cuda.synchronize()
+        t_frame = time.perf_counter() - t1
+        plain = dataclasses.replace(d.renderer, config=dataclasses.replace(
+            d.renderer.config, backend="xla"), compact=True)
+        t1 = time.perf_counter()
+        want, _rb, _g = plain.render_device(cam)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t1
+        compare(f"dynamic frame, exact_lod1 {exact}", [screen], [want], {})
+        if int((screen == MAGENTA_I32).sum()):
+            raise AssertionError("[dynamic] magenta pixels in the frame")
+        log(f"[dynamic] exact_lod1 {exact} (max_runs {d.renderer._wa.max_runs}"
+            f", {tuple(built[0][2].shape)} meta records, "
+            f"{built[0][3].shape[0]} run words, {built[0][5].shape[0]} color "
+            f"words): the rebuild on the card == on the CPU, all 6 fields, 0 "
+            f"words differ; a {harness.dynamic_camera(spec.dims).screen[0]}x"
+            f"{harness.dynamic_camera(spec.dims).screen[1]} frame through the "
+            f"kernels ({t_frame:.2f} s cold) == the plain path "
+            f"(compacted, {t_plain:.2f} s), 0 pixels differ, 0 magenta "
+            f"(DynamicTerrain.create {t_create:.1f} s)")
+        n_frames = 12
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        d.render_frame(0.4, cam)
+        torch.cuda.synchronize()
+        if time.perf_counter() - t1 > 2.0:
+            n_frames = 3
+        if not exact:
+            for m in (roll_kernel, phase1_kernel, rk):
+                m.launches = 0
+            rk.screens_launches = 0
+        m = harness.run_dynamic(d, n_frames=n_frames, log=log)
+        if not exact:
+            out["launches"] = {"roll_chunk": roll_kernel.launches,
+                               "rasterize_visits": phase1_kernel.launches,
+                               "reproject_screen": rk.launches}
+            if min(out["launches"].values()) <= 0:
+                raise AssertionError(f"[dynamic] launches {out['launches']}")
+        if m["magenta_pixels"]:
+            raise AssertionError("[dynamic] magenta pixels in the timed run")
+        out[exact] = m
+        log(f"[dynamic] exact_lod1 {exact}: "
+            f"{m['fps']:.3f} fps over {n_frames} frames"
+            + ("" if n_frames == 12 else " (3 frames: a frame took over 2 s)")
+            + f", frame {m['frame_ms_mean']:.3f} ms; split: rebuild p50 "
+            f"{m['rebuild_ms_p50']:.3f} ms, render p50 "
+            f"{m['render_ms_p50']:.3f} ms; launches a frame: roll "
+            f"{m['launches_per_frame']['roll_chunk']:.1f}, rasterize "
+            f"{m['launches_per_frame']['rasterize_visits']:.1f}, phase 2 "
+            f"{m['launches_per_frame']['reproject_screen']:.1f} ({card})")
+        del d, plain
+
+    # an editable world: the build, three column edits and the chain
+    # snapshot on the card == on the CPU, and its frames through the kernels
+    # == the plain path
+    w0 = random_world_64()[0]
+    occ = np.zeros(64, bool)
+    occ[[0, 3, 4, 5, 8, 20, 21, 22, 23]] = True
+    argb = np.where(occ, np.uint32(0xFF204080) + np.arange(64, dtype=np.uint32)
+                    * np.uint32(0x010203), np.uint32(0)).astype(np.uint32)
+    worlds = []
+    for device in (dev, torch.device("cpu")):
+        spec, ew = td.editable_from_lod0(w0, max_runs=24, col_colors=24,
+                                         device=device)
+        for x, z in ((8, 8), (40, 17), (63, 0)):
+            ew = td.set_voxel_column(
+                spec, ew, x, z, torch.from_numpy(occ).to(device),
+                torch.from_numpy(argb.view(np.int32)).to(device))
+        wa, K = td.editable_chain_snapshot(spec, ew, 6)
+        worlds.append((spec, ew, wa, K))
+    (spec, ew, wa, K), (_s, cew, cwa, cK) = worlds
+    if K != cK:
+        raise AssertionError(f"chain run capacity {K} on the card, {cK} on "
+                             "the CPU")
+    compare("editable world", [ew.rec_fwd, ew.rec_rev, ew.colors],
+            [cew.rec_fwd.to(dev), cew.rec_rev.to(dev), cew.colors.to(dev)], {})
+    compare("editable chain", [getattr(wa, k) for k in fields],
+            [getattr(cwa, k).to(dev) for k in fields], {})
+    from cpuvox_tpu_torch.render import camera as cm
+
+    cam = cm.Camera(position=(32.0, 48.0, -8.0), pitch_deg=25.0,
+                    yaw_deg=15.0, screen=SMALL_WH)
+    cfg = RenderConfig(width=SMALL_WH[0], height=SMALL_WH[1])
+    for name, make in (("editable", td.editable_renderer),
+                       ("chain", td.editable_chain_renderer)):
+        a, _rb, _g = make(spec, ew, cfg).render_device(cam)
+        b, _rb, _g = make(spec, ew, dataclasses.replace(
+            cfg, backend="xla")).render_device(cam)
+        compare(f"{name} frame", [a], [b], {})
+    log(f"[dynamic] editable 64^3 world (max_runs {spec.max_runs}, "
+        f"col_colors {spec.col_colors}, records {tuple(ew.rec_fwd.shape)}): "
+        f"3 set_voxel_column edits and a 6-level chain snapshot (max_runs "
+        f"{K}) on the card == on the CPU, 0 words differ; its LOD0 and chain "
+        f"{SMALL_WH[0]}x{SMALL_WH[1]} frames through the kernels == plain")
+    return out
+
+
 def time_ms(fn, reps: int, setup=lambda: None) -> float:
     """Mean device time of ``fn`` in ms, by CUDA events around each call;
     ``setup`` (untimed) prepares each call's inputs."""
@@ -1026,7 +1443,8 @@ def resource_usage(lib: str) -> None:
                              f"kernels:\n{out}")
     for fn, usage in found:
         fields = dict(re.findall(r"(\w+):(\d+)", usage))
-        short = next((k[0] for k in KERNELS if k[0] in fn), fn)
+        short = next((n for n in ["reproject_screens"]
+                      + [k[0] for k in KERNELS] if n + "_kernel" in fn), fn)
         log(f"[build] {short}: {fields['REG']} registers, stack "
             f"{fields['STACK']} B, local {fields['LOCAL']} B (spills), "
             f"shared {fields['SHARED']} B")
@@ -1120,6 +1538,7 @@ def main() -> int:
     t_caps["dims"] = terrain.device_world.dims
     t_caps["roll_previous"] = prev_roll["previous design"]
     t_times = time_kernels(t_caps)
+    check_lods_past_8(terrain, stats)
     log(f"[terrain] done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- terrain2048 in ARGB mode: kernel 2 writes the inline colors
@@ -1195,6 +1614,13 @@ def main() -> int:
         "roll_previous": prev_roll["previous design"],
         "dims": dw.dims, "plain_reps": 1})
     log(f"[layered] done at {time.perf_counter() - t_start:.1f} s")
+    del layered, g_caps, busiest, f, p2args
+    torch.cuda.empty_cache()
+
+    rollout = check_rollout(card, stats)
+    log(f"[rollout] done at {time.perf_counter() - t_start:.1f} s")
+    dynamic = check_dynamic(card, stats)
+    log(f"[dynamic] done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for kname, src, replaces in KERNELS:
@@ -1226,10 +1652,33 @@ def main() -> int:
             "library_ms": lt["library_ms"],
             "library_device_ms": lt["library_device_ms"],
             "previous_design": lt["previous_design"],
-            "launches_by_path": {"terrain2048": t_launches[kname],
-                                 "terrain2048_argb": a_launches[kname],
-                                 "layered2048": l_launches[kname]},
+            "launches_by_path": {
+                "terrain2048": t_launches[kname],
+                "terrain2048_argb": a_launches[kname],
+                "layered2048": l_launches[kname],
+                "rollout64_256x256": rollout["launches"][kname],
+                "dynamic512_1280x720": dynamic["launches"][kname]},
             "terrain2048": tt, "terrain2048_argb": at})
+    # phase 2 of a camera batch: the batched variant of reproject_screen,
+    # timed at the rollout's shapes (a direction group of 32 cameras)
+    p2 = rollout["phase2"]
+    kernels.append({
+        "name": "reproject_screens", "route": "cuda",
+        "source": "cpuvox_tpu_torch/csrc/reproject.cu",
+        "replaces": "cpuvox_tpu/ops/reproject_kernel.py:64",
+        "launches": rollout["launches"]["reproject_screens"],
+        "max_abs_err": stats["reproject_screens"]["max_abs_err"],
+        "ms": p2["batched"]["ms"], "device_ms": p2["batched"]["device_ms"],
+        "plain_ms": p2["plain_ms"], "bound_ms": p2["bound_ms"],
+        "bound_by": p2["bound_by"], "library_ms": None,
+        "per_camera_launches": p2["per camera"],
+        "launches_by_path": {
+            "rollout64_256x256": rollout["launches"]["reproject_screens"]}})
+    log(f"[summary] rollout cams/s (compaction off, on): "
+        f"{rollout['cams_per_sec'][False]}, {rollout['cams_per_sec'][True]}, "
+        f"busy share {rollout['busy_share']:.4f}; dynamic fps exact_lod1 "
+        f"False {dynamic[False]['fps']:.3f}, True {dynamic[True]['fps']:.3f} "
+        f"({card})")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -32,6 +32,12 @@
 // cell arrays, its row, state and planes stay in place at full width.  A
 // null index is every ray.  See roll.cu.
 //
+// Camera height: a single camera's frame passes cam_y and cam_y_norm =
+// cam_y / world_max_y as scalars (Consts).  A batch of cameras marched
+// together (parallel/batch.py) gives the group kernel both as (R,) arrays,
+// read by the ray's slot like its state (phase1_kernel.py:719, :764 take
+// them per ray too); the previous design keeps the scalars.
+//
 // What bounds the group kernel on the H100: the serial chain of its
 // busiest ray, not bytes.  A ray's cells are a dependent chain (each cell's
 // state is the last one's): per cell one record read (a 32-96 B row, or a
@@ -1028,10 +1034,20 @@ struct CellSrc {
   int C;
 };
 
+// A camera height a ray (a batch of cameras in one march), read by the
+// ray's slot like its state: cam_y and cam_y / world_max_y (an f32 divide
+// made by the caller, as the reference makes it).  Null pointers leave the
+// launch's scalars in Consts, as a single camera's frame passes them.
+struct RayCamY {
+  const float* cam_y;
+  const float* cam_y_norm;
+};
+
 template <int G>
 __global__ void __launch_bounds__(kThreads) rasterize_visits_kernel(
     int* __restrict__ raybuf, const StatePtrs st, const CellSrc cs,
-    const World w, const Consts k, const int* __restrict__ index, int Rk) {
+    const World w, const Consts k0, const RayCamY cy,
+    const int* __restrict__ index, int Rk) {
   extern __shared__ unsigned masks[];
   const Group<G> g(threadIdx.x & 31);
   const int rib = threadIdx.x / G;  // the block's ray
@@ -1040,6 +1056,11 @@ __global__ void __launch_bounds__(kThreads) rasterize_visits_kernel(
   const int r = index ? index[t] : t;
   RayState s = st.load(r);
   if (!s.alive) return;  // a dead ray's cells are all exact no-ops
+  Consts k = k0;
+  if (cy.cam_y != nullptr) {
+    k.cam_y = __ldg(cy.cam_y + r);
+    k.cam_y_norm = __ldg(cy.cam_y_norm + r);
+  }
   const F3 pb = st.plane(st.plane_bottom, r);
   const F3 pt = st.plane(st.plane_top, r);
   const F3 pd = st.plane(st.plane_dir, r);
@@ -1189,7 +1210,8 @@ extern "C" int cpuvox_rasterize_chunk(
 
 // visits: layout (a), or null and packed + proc: layout (b).  rec/rw/fmt:
 // the record table of the direction; runs: the split layout's flat run
-// array of the direction (else null); rwords: the inline run region's words.
+// array of the direction (else null); rwords: the inline run region's words;
+// cam_y_ray / cam_y_norm_ray: (R,) f32 a ray, or null for the scalars.
 extern "C" int cpuvox_rasterize_visits(
     void* raybuf, void* nfp_min, void* nfp_max, void* fb_min, void* fb_max,
     void* f_active, void* fdir_min, void* fdir_max, void* alive,
@@ -1197,8 +1219,8 @@ extern "C" int cpuvox_rasterize_visits(
     void* packed, void* proc, int C, void* rec, int rw, int fmt, void* runs,
     int maxr, int rwords, int mcc, void* col_base, void* grid_z,
     float world_max_y, float cam_y, float cam_y_norm, int has_solid,
-    float solid_min_y, float solid_max_y, int dir, void* index, int Rk, int P,
-    void* stream) {
+    float solid_min_y, float solid_max_y, int dir, void* cam_y_ray,
+    void* cam_y_norm_ray, void* index, int Rk, int P, void* stream) {
   if (Rk > 0 && C > 0) {
     const World w{static_cast<const int*>(rec), static_cast<const int*>(runs),
                   static_cast<const int*>(col_base),
@@ -1218,6 +1240,8 @@ extern "C" int cpuvox_rasterize_visits(
         cs, w,
         make_consts(world_max_y, cam_y, cam_y_norm, has_solid, solid_min_y,
                     solid_max_y, dir, P),
+        RayCamY{static_cast<const float*>(cam_y_ray),
+                static_cast<const float*>(cam_y_norm_ray)},
         static_cast<const int*>(index), Rk);
   }
   return static_cast<int>(cudaGetLastError());

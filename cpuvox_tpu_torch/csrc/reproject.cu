@@ -42,6 +42,13 @@
 //    coalescing by transposing the maps through device memory;
 //  - the resolve and the write run with lanes along x, one coalesced row
 //    of the tile at a time.
+// reproject_screens_kernel is the same tile for a batch of cameras whose
+// rays are consecutive blocks of one raybuffer (parallel/batch.py): the
+// camera is the grid's z axis, and its tables come from a (B, 36)-word
+// array on the device (one copy a batch) into shared memory, in place of
+// the by-value struct.  At the rollout's 256x256 a camera is 64 tiles, too
+// few to fill the card, so one launch for all of them spares B - 1
+// launches.
 //
 // Bit-exactness: built with -fmad=false (each product rounded, as torch
 // rounds each op); divisions are IEEE divisions; min/max propagate NaN
@@ -176,10 +183,12 @@ __device__ __forceinline__ int render_coord(int i, int r, int n) {
   return r == n ? i : (i * r) / n;
 }
 
-__global__ void __launch_bounds__(kTile * kRows) reproject_screen_kernel(
-    const int* __restrict__ rb, int R, int P, SegmentTables t, int any_active,
-    int rw, int rh, int W, int H, const int* __restrict__ colors,
-    int n_colors, int skybox, int* __restrict__ out) {
+// One block's 32 x 32 output tile of one camera's screen.
+__device__ __forceinline__ void reproject_tile(
+    const int* __restrict__ rb, int R, int P, const SegmentTables& t,
+    bool any_active, int rw, int rh, int W, int H,
+    const int* __restrict__ colors, int n_colors, int skybox,
+    int* __restrict__ out) {
   __shared__ int s_code[kTile][kTile + 1];
   __shared__ int s_val[kTile][kTile + 1];
   const int lane = threadIdx.x;
@@ -233,6 +242,39 @@ __global__ void __launch_bounds__(kTile * kRows) reproject_screen_kernel(
   }
 }
 
+__global__ void __launch_bounds__(kTile * kRows) reproject_screen_kernel(
+    const int* __restrict__ rb, int R, int P, SegmentTables t, int any_active,
+    int rw, int rh, int W, int H, const int* __restrict__ colors,
+    int n_colors, int skybox, int* __restrict__ out) {
+  reproject_tile(rb, R, P, t, any_active != 0, rw, rh, W, H, colors,
+                 n_colors, skybox, out);
+}
+
+// A batch of cameras in one launch (parallel/batch.py): the camera is the
+// grid's z axis.  Camera b's rays are rows [b * R1, (b + 1) * R1) of the
+// raybuffer, its tables (row ids relative to its block) are tables[b] on the
+// device, copied once a batch, and its screen is out[b].  A block first
+// reads its camera's 36 table words into shared memory.
+__global__ void __launch_bounds__(kTile * kRows) reproject_screens_kernel(
+    const int* __restrict__ rb, int R1, int P,
+    const SegmentTables* __restrict__ tables, int rw, int rh, int W, int H,
+    const int* __restrict__ colors, int n_colors, int skybox,
+    int* __restrict__ out) {
+  constexpr int kWords = sizeof(SegmentTables) / sizeof(int);
+  __shared__ SegmentTables t;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.y * kTile + threadIdx.x;
+  if (tid < kWords)
+    reinterpret_cast<int*>(&t)[tid] =
+        reinterpret_cast<const int*>(tables + b)[tid];
+  __syncthreads();
+  const bool any_active =
+      t.active[0] | t.active[1] | t.active[2] | t.active[3];
+  reproject_tile(rb + static_cast<size_t>(b) * R1 * P, R1, P, t, any_active,
+                 rw, rh, W, H, colors, n_colors, skybox,
+                 out + static_cast<size_t>(b) * H * W);
+}
+
 }  // namespace
 
 extern "C" int cpuvox_reproject_screen(void* rb, int R, int P,
@@ -245,6 +287,22 @@ extern "C" int cpuvox_reproject_screen(void* rb, int R, int P,
     reproject_screen_kernel<<<grid, dim3(kTile, kRows), 0,
                               static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(rb), R, P, tables, any_active, rw, rh, W, H,
+        static_cast<const int*>(colors), n_colors, skybox,
+        static_cast<int*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int cpuvox_reproject_screens(void* rb, int R1, int P, int B,
+                                        void* tables, int rw, int rh, int W,
+                                        int H, void* colors, int n_colors,
+                                        int skybox, void* out, void* stream) {
+  if (W > 0 && H > 0 && B > 0) {
+    const dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile, B);
+    reproject_screens_kernel<<<grid, dim3(kTile, kRows), 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(rb), R1, P,
+        static_cast<const SegmentTables*>(tables), rw, rh, W, H,
         static_cast<const int*>(colors), n_colors, skybox,
         static_cast<int*>(out));
   }

@@ -20,7 +20,10 @@
 //  - the LOD distances (at most kMaxLods) are read into registers once, and
 //    the distance of the ray's current LOD is held in a register that only
 //    an LOD switch updates (an unrolled select), where the first design
-//    loaded lod_dist[lod] from memory on every step;
+//    loaded lod_dist[lod] from memory on every step.  A frame of more than
+//    kMaxLods distances (RenderConfig.lod_levels 9 and up) launches the
+//    memory form, the template's Regs = false: the same steps with the
+//    distance loaded every step, so any count of LODs rolls;
 // bench/roll_variants.py builds the kernel with each of these turned back
 // (kBlock, kLodRegisters), with the first design's settings, and without
 // the visit stores (kStoreVisits 0, a diagnostic: the visits are not
@@ -46,7 +49,9 @@ namespace {
 constexpr int kNVF = 13;
 constexpr int kBlock = 32;         // threads a block
 constexpr int kMaxLods = 8;        // LOD distances held in registers
-constexpr int kLodRegisters = 1;   // 0: load lod_dist[lod] every step
+// 1: the register form for at most kMaxLods distances, the memory form
+// above; 0: the memory form always (bench/roll_variants.py)
+constexpr int kLodRegisters = 1;
 constexpr int kStoreVisits = 1;    // 0: no visit stores (diagnostic only)
 
 // lod_dist[clamp(lv, 0, nld - 1)] from the registers: an unrolled select,
@@ -61,6 +66,7 @@ __device__ __forceinline__ float lod_threshold(const float (&d)[kMaxLods],
   return v;
 }
 
+template <bool Regs>
 __global__ void __launch_bounds__(kBlock) roll_chunk_kernel(
     int* __restrict__ pos, float* __restrict__ tmax,
     float* __restrict__ tdelta, int* __restrict__ stp,
@@ -82,8 +88,8 @@ __global__ void __launch_bounds__(kBlock) roll_chunk_kernel(
   float d[kMaxLods];
 #pragma unroll
   for (int k = 0; k < kMaxLods; ++k)
-    d[k] = (kLodRegisters && k < nld) ? lod_dist[k] : 0.0f;
-  float thr = kLodRegisters ? lod_threshold(d, nld, lv) : 0.0f;
+    d[k] = (Regs && k < nld) ? lod_dist[k] : 0.0f;
+  float thr = Regs ? lod_threshold(d, nld, lv) : 0.0f;
 
   int* v = visits + t;
   for (int c = 0; c < C; ++c, v += kNVF * Rk) {
@@ -91,8 +97,7 @@ __global__ void __launch_bounds__(kBlock) roll_chunk_kernel(
     const int p_px = px, p_pz = pz, p_lv = lv;
     const float p_tmx = tmx, p_tmz = tmz, p_i0 = i0, p_i1 = i1;
 
-    const float ld =
-        kLodRegisters ? thr : lod_dist[min(max(lv, 0), nld - 1)];
+    const float ld = Regs ? thr : lod_dist[min(max(lv, 0), nld - 1)];
     if (al && i0 >= ld) {  // NextLOD (SegmentDDAData.cs:31-73)
       const int vsize = 1 << lv;
       const int mask2 = 2 * vsize - 1;
@@ -115,7 +120,7 @@ __global__ void __launch_bounds__(kBlock) roll_chunk_kernel(
       spx *= 2;
       spz *= 2;
       lv += 1;
-      if (kLodRegisters) thr = lod_threshold(d, nld, lv);
+      if (Regs) thr = lod_threshold(d, nld, lv);
     }
     al = al && px >= 0 && px < X && pz >= 0 && pz < Z;
 
@@ -174,8 +179,10 @@ extern "C" int cpuvox_roll_chunk(void* pos, void* tmax, void* tdelta,
                                  void* index, int Rk, void* visits,
                                  void* stream) {
   if (Rk > 0) {
-    roll_chunk_kernel<<<(Rk + kBlock - 1) / kBlock, kBlock, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+    auto kernel = kLodRegisters && nld <= kMaxLods ? roll_chunk_kernel<true>
+                                                   : roll_chunk_kernel<false>;
+    kernel<<<(Rk + kBlock - 1) / kBlock, kBlock, 0,
+             static_cast<cudaStream_t>(stream)>>>(
         static_cast<int*>(pos), static_cast<float*>(tmax),
         static_cast<float*>(tdelta), static_cast<int*>(stp),
         static_cast<float*>(ids), static_cast<int*>(lod),

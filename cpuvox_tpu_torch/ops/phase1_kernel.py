@@ -29,6 +29,11 @@ against the group kernel by ``chip_smoke.py``: one thread a ray on cells
 that torch has fetched (``CellFields``), its plain version
 ``rasterize_cells``.
 
+The camera height is a scalar of the launch, or for a batch of cameras
+marched together (``parallel/batch.py``) an (R,) array a ray
+(``raymarch.raster_consts``), which ``rasterize_visits`` hands the kernel
+as two pointers; ``rasterize_chunk`` takes the scalar only.
+
 Each wrapper takes its plain version for CPU tensors and launches its
 kernel for CUDA tensors, which it updates in place, and returns the same
 ``RasterState``.  With a live-ray ``index`` (ascending int32 (Rk,)) lane
@@ -66,10 +71,11 @@ _F = ctypes.c_float
 # 9 state + 9 cell-field + 3 static pointers, then the scalars
 _CHUNK_ARGTYPES = ([_P] * 21 + [_F, _F, _F, _I, _F, _F, _I, _I, _I, _I, _P,
                                 _I, _I, _P])
-# 9 state + 3 static pointers; visits, packed, proc, C; the world; scalars
+# 9 state + 3 static pointers; visits, packed, proc, C; the world; scalars;
+# the per-ray camera height (or nulls)
 _VISITS_ARGTYPES = ([_P] * 12 + [_P, _P, _P, _I, _P, _I, _I, _P, _I, _I, _I,
-                                 _P, _P, _F, _F, _F, _I, _F, _F, _I, _P, _I,
-                                 _I, _P])
+                                 _P, _P, _F, _F, _F, _I, _F, _F, _I, _P, _P,
+                                 _P, _I, _I, _P])
 
 
 def rasterize_visits_ref(rs: rm.RasterState, wa: rm.WorldArrays, cells,
@@ -109,6 +115,16 @@ def _scalars(consts, iteration_direction: int):
     return [wmy, cam_y, cam_y_norm, int(has_solid),
             smin if has_solid else 0.0, smax if has_solid else 0.0,
             int(iteration_direction)]
+
+
+def _cam_y_ptrs(consts, R: int):
+    """The per-ray camera height's pointers, (R,) f32 each, or two nulls
+    where the frame has one camera (the scalars carry it)."""
+    if consts["cam_y"].dim() == 0:
+        return [None, None]
+    g = _build.require
+    return [g(consts["cam_y"], torch.float32, (R,), "cam_y"),
+            g(consts["cam_y_norm"], torch.float32, (R,), "cam_y_norm")]
 
 
 def _world_args(wa: rm.WorldArrays, iteration_direction: int):
@@ -168,7 +184,7 @@ def rasterize_visits(rs: rm.RasterState, wa: rm.WorldArrays, cells,
               maxr, rwords, mcc,
               g(wa.col_base, torch.int32, (8,), "col_base"),
               g(wa.grid_z, torch.int32, (8,), "grid_z"),
-              *_scalars(consts, iteration_direction),
+              *_scalars(consts, iteration_direction), *_cam_y_ptrs(consts, R),
               None if index is None else g(index, torch.int32, (Rk,), "index"),
               Rk, P, _build.stream_ptr(rs.raybuf))
     _build.check(code, "cpuvox_rasterize_visits")
@@ -185,6 +201,9 @@ def rasterize_chunk(rs: rm.RasterState, cells: rm.CellFields,
     if not rs.raybuf.is_cuda:
         return rasterize_chunk_ref(rs, cells, static, consts,
                                    iteration_direction, index=index)
+    if consts["cam_y"].dim():
+        raise ValueError("the previous design takes one camera height a "
+                         "launch")
     R, P = rs.raybuf.shape
     Rk = R if index is None else index.shape[0]
     C = cells.lod.shape[0]

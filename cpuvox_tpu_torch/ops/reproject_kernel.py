@@ -9,6 +9,13 @@ index mode, resolves the color (``raymarch.resolve_colors``).  The segment
 tables ride in the kernel's parameters: nothing is copied to the card.  Its
 plain version, ``reproject_screen_ref``, runs those steps in eager torch.
 
+``reproject_screens`` is phase 2 for a batch of cameras whose rays sit in
+consecutive blocks of one raybuffer (``parallel/batch.py``): one launch for
+all of them, the camera as the grid's third axis, the segment tables of
+every camera copied to the card once as a (B, 36) int32 array
+(``SegmentTables`` words).  Its plain version, ``reproject_screens_ref``,
+is ``reproject_screen_ref`` a camera at a time.
+
 ``sample_raybuffer`` is the previous design's kernel, off every path and
 timed against the fused kernel by ``chip_smoke.py`` (and, with the torch
 steps around it, ``reproject_screen_two_pass``): one CUDA thread per element,
@@ -34,8 +41,9 @@ from cpuvox_tpu_torch.render import reproject
 from . import _build
 
 # kernel launches since the last reset (plain calls not counted): the fused
-# phase-2 kernel's, and the previous design's
+# phase-2 kernel's, its batched variant's, and the previous design's
 launches = 0
+screens_launches = 0
 sample_launches = 0
 
 _P = ctypes.c_void_p
@@ -54,6 +62,7 @@ class SegmentTables(ctypes.Structure):
 
 _SCREEN_ARGTYPES = [_P, _I, _I, SegmentTables, _I, _I, _I, _I, _I, _P, _I,
                     _I, _P, _P]
+_SCREENS_ARGTYPES = [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P]
 
 
 def segment_tables(tables) -> SegmentTables:
@@ -68,6 +77,19 @@ def segment_tables(tables) -> SegmentTables:
     return SegmentTables(
         **{k: (ctypes.c_float * 4)(*v.tolist()) for k, v in floats.items()},
         **{k: (ctypes.c_int * 4)(*v.tolist()) for k, v in ints.items()})
+
+
+def segment_tables_words(tables_list) -> np.ndarray:
+    """The cameras' ``SegmentTables`` as a (B, 36) int32 array, each row the
+    struct's words in order (the f32 tables as their bits)."""
+    tri = np.stack([np.stack([t[k] for k in ("tri_a", "tri_b", "tri_c")])
+                    for t in tables_list]).astype(np.float32)  # (B, 3, 4, 2)
+    floats = tri.transpose(0, 1, 3, 2).reshape(len(tables_list), 24)
+    ints = np.stack([np.concatenate([np.asarray(t[k]).astype(np.int32)
+                                     for k in ("ray_count", "ray_base",
+                                               "active")])
+                     for t in tables_list])
+    return np.concatenate([floats.view(np.int32), ints], axis=1)
 
 
 def _torch_phase2(sample_kernel: bool, raybuf, tables, rw, rh, width,
@@ -104,27 +126,38 @@ def reproject_screen_two_pass(raybuf, tables, rw: int, rh: int, width: int,
                          skybox)
 
 
-def reproject_screen(raybuf, tables, rw: int, rh: int, width: int,
-                     height: int, colors=None, skybox: int = 0):
-    """``reproject_screen_ref`` in one launch of the fused kernel."""
-    global launches
-    if not raybuf.is_cuda:
-        return reproject_screen_ref(raybuf, tables, rw, rh, width, height,
-                                    colors, skybox)
-    R, P = raybuf.shape
+def _check_sizes(P: int, rw: int, rh: int, width: int, height: int):
     if max(rw, rh) > P:
         raise ValueError(f"render size {rw}x{rh} exceeds the raybuffer's "
                          f"{P} texels")
     if max(width * rw, height * rh) >= 2**31:
         raise ValueError(f"the upscale {rw}x{rh} -> {width}x{height} "
                          "overflows the kernel's int32 pixel map")
+
+
+def _color_args(colors):
+    if colors is None:
+        return None, 0
+    return _build.require(colors, torch.int32, None, "colors"), colors.shape[0]
+
+
+def reproject_screen(raybuf, tables, rw: int, rh: int, width: int,
+                     height: int, colors=None, skybox: int = 0, out=None):
+    """``reproject_screen_ref`` in one launch of the fused kernel; into
+    ``out`` ((height, width) int32) where given."""
+    global launches
+    if not raybuf.is_cuda:
+        return reproject_screen_ref(raybuf, tables, rw, rh, width, height,
+                                    colors, skybox)
+    R, P = raybuf.shape
+    _check_sizes(P, rw, rh, width, height)
     g = _build.require
     p_rb = g(raybuf, torch.int32, (R, P), "raybuf")
-    p_colors, n_colors = None, 0
-    if colors is not None:
-        p_colors = g(colors, torch.int32, None, "colors")
-        n_colors = colors.shape[0]
-    out = torch.empty((height, width), dtype=torch.int32, device=raybuf.device)
+    p_colors, n_colors = _color_args(colors)
+    if out is None:
+        out = torch.empty((height, width), dtype=torch.int32,
+                          device=raybuf.device)
+    g(out, torch.int32, (height, width), "out")
     fn = _build.function("cpuvox_reproject_screen", _SCREEN_ARGTYPES)
     code = fn(p_rb, R, P, segment_tables(tables),
               int(np.asarray(tables["active"]).any()), rw, rh, width, height,
@@ -132,6 +165,62 @@ def reproject_screen(raybuf, tables, rw: int, rh: int, width: int,
               _build.stream_ptr(out))
     _build.check(code, "cpuvox_reproject_screen")
     launches += 1
+    return out
+
+
+def reproject_screens_ref(raybuf, tables_list, R1: int, rw: int, rh: int,
+                          width: int, height: int, colors=None,
+                          skybox: int = 0):
+    """Phase 2 of B cameras whose rays are the consecutive R1-row blocks of
+    ``raybuf``: ``reproject_screen_ref`` a camera at a time, (B, height,
+    width) int32 ARGB bits."""
+    return torch.stack([
+        reproject_screen_ref(raybuf[b * R1:(b + 1) * R1], t, rw, rh, width,
+                             height, colors, skybox)
+        for b, t in enumerate(tables_list)])
+
+
+def reproject_screens(raybuf, tables_list, R1: int, rw: int, rh: int,
+                      width: int, height: int, colors=None, skybox: int = 0):
+    """``reproject_screens_ref`` in one launch of the batched kernel."""
+    global screens_launches
+    if not raybuf.is_cuda:
+        return reproject_screens_ref(raybuf, tables_list, R1, rw, rh, width,
+                                     height, colors, skybox)
+    B = len(tables_list)
+    P = raybuf.shape[1]
+    _check_sizes(P, rw, rh, width, height)
+    g = _build.require
+    p_rb = g(raybuf, torch.int32, (B * R1, P), "raybuf")
+    p_colors, n_colors = _color_args(colors)
+    # one copy of every camera's tables, from pinned memory so that it does
+    # not wait for the card
+    words = torch.from_numpy(segment_tables_words(tables_list)).pin_memory(
+    ).to(raybuf.device, non_blocking=True)
+    out = torch.empty((B, height, width), dtype=torch.int32,
+                      device=raybuf.device)
+    fn = _build.function("cpuvox_reproject_screens", _SCREENS_ARGTYPES)
+    code = fn(p_rb, R1, P, B, words.data_ptr(), rw, rh, width, height,
+              p_colors, n_colors, int(skybox), out.data_ptr(),
+              _build.stream_ptr(out))
+    _build.check(code, "cpuvox_reproject_screens")
+    screens_launches += 1
+    return out
+
+
+def reproject_screens_per_camera(raybuf, tables_list, R1: int, rw: int,
+                                 rh: int, width: int, height: int,
+                                 colors=None, skybox: int = 0):
+    """``reproject_screens`` as B launches of the fused single-camera kernel
+    (tables by value), each into its camera's slice of the output."""
+    if not raybuf.is_cuda:
+        return reproject_screens_ref(raybuf, tables_list, R1, rw, rh, width,
+                                     height, colors, skybox)
+    out = torch.empty((len(tables_list), height, width), dtype=torch.int32,
+                      device=raybuf.device)
+    for b, t in enumerate(tables_list):
+        reproject_screen(raybuf[b * R1:(b + 1) * R1], t, rw, rh, width,
+                         height, colors, skybox, out=out[b])
     return out
 
 

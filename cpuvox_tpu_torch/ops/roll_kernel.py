@@ -2,8 +2,9 @@
 
 Replaces ``cpuvox_tpu/ops/roll_kernel.py::roll_chunk_pallas``.  One CUDA
 thread per ray, in blocks of one warp, keeps the DDA state and the LOD
-distances (at most ``MAX_LODS``) in registers for the chunk's C steps and
-writes the visit list as (C, 13, R) int32, f32 fields as their bits:
+distances (up to ``MAX_LODS``; more are read from memory every step) in
+registers for the chunk's C steps and writes the visit list as (C, 13, R)
+int32, f32 fields as their bits:
 
   [0] pos_x   [1] pos_z   [2] ids0   [3] ids1   [4] lod   [5] valid
   [6] pre_pos_x [7] pre_pos_z [8] pre_tmax_x [9] pre_tmax_z
@@ -32,7 +33,9 @@ from . import _build
 
 launches = 0  # kernel launches since the last reset (plain calls not counted)
 
-MAX_LODS = 8  # csrc/roll.cu's kMaxLods: the LOD distances it holds in registers
+# csrc/roll.cu's kMaxLods: the LOD distances it holds in registers; a frame
+# of more launches the kernel's memory form
+MAX_LODS = 8
 
 roll_chunk_ref = rm._roll_chunk
 
@@ -65,9 +68,8 @@ def roll_chunk(dda: rm.DDAState, alive, dirs, lod_distances, far_clip, dims,
         g(lod_distances, torch.float32, None, "lod_distances"),
     ]
     nld = lod_distances.numel()
-    if not 1 <= nld <= MAX_LODS:
-        raise ValueError(f"{nld} LOD distances: the roll kernel holds 1 to "
-                         f"{MAX_LODS}")
+    if nld < 1:
+        raise ValueError("the roll needs at least one LOD distance")
     p_index = (None if index is None
                else g(index, torch.int32, (Rk,), "index"))
     visits = torch.empty((chunk, rm.NVF, Rk), dtype=torch.int32,

@@ -67,6 +67,20 @@ def _check_supported(config: RenderConfig):
 
 
 @dataclasses.dataclass
+class ArraysWorld:
+    """What a Renderer reads of a world it is given as ``WorldArrays`` (a
+    dynamic world, ``world/dynamic.py``) in place of a ``DeviceWorld``: the
+    dims and the run capacity.  No occupancy tiles, no solid bounds, index
+    mode."""
+
+    dims: tuple[int, int, int]
+    max_runs: int
+    max_col_colors: int = 0
+    solid_min_y: float | None = None
+    solid_max_y: float | None = None
+
+
+@dataclasses.dataclass
 class Renderer:
     """Holds the device world; render frames with ``render``."""
 
@@ -92,6 +106,20 @@ class Renderer:
                 compact=compact)
         r._wa = raymarch.world_arrays(dw, r.device)
         return r
+
+    @classmethod
+    def from_arrays(cls, wa: raymarch.WorldArrays, dims, config: RenderConfig,
+                    device="cuda", compact: bool = False, lod_distances=None,
+                    far_clip: float = 0.0):
+        """A Renderer over given world arrays (the dynamic worlds of
+        ``world/dynamic.py``; the JAX package builds these through
+        ``Renderer.__new__``).  Swap ``_wa`` for arrays of the same world to
+        render an edit.  ``lod_distances`` None takes the first camera's."""
+        _check_supported(config)
+        return cls(device_world=ArraysWorld(tuple(dims), int(wa.max_runs)),
+                   config=config, device=torch.device(device),
+                   lod_distances=lod_distances, far_clip=far_clip, _wa=wa,
+                   compact=compact)
 
     @property
     def kernels(self) -> bool:
@@ -127,7 +155,10 @@ class Renderer:
     def occupancy_on(self) -> bool:
         """The occupancy-gate policy resolved against the world's content
         (``frame.py:152-165``): "auto" gates when at least half the LOD0
-        columns are empty."""
+        columns are empty.  A world without occupancy tiles (the dynamic
+        worlds) marches densely whatever the setting."""
+        if self._wa.occ_tiles is None:
+            return False
         mode = self.config.occupancy_gate
         if mode == "on":
             return True
@@ -184,46 +215,68 @@ class Renderer:
                 cam, max(self.device_world.dims), cfg.lod_levels, cfg.lod_error)
         return cam, cm.make_camera_data(cam, self.lod_distances, self.far_clip)
 
-    def frame_setup(self, cam: cm.Camera) -> FrameSetup:
-        """The host side of a frame: camera snapshot, segments, reprojection
-        tables and the initial rays on the device."""
+    def frame_geometry(self, cam: cm.Camera) -> FrameSetup:
+        """The host side of a frame without its rays: camera snapshot,
+        segments and reprojection tables (``static``, ``dda`` and ``alive0``
+        None)."""
         cam, cam_data = self.setup_camera(cam)
         vp_screen = cm.vanishing_point_screen(cam, cm.vanishing_point_world(cam))
         segs = sg.build_segments(cam, vp_screen)
         ctxs = sg.build_segment_contexts(cam, segs, vp_screen)
         n_td = segs[0].ray_count + segs[1].ray_count
         tables = reproject.reproject_tables(segs, ctxs, vp_screen, n_td)
-        dims, R = self.device_world.dims, self.ray_capacity
-        if self.config.host_init:
-            static, dda, alive0, _meta = ray_init.init_rays(
-                cam_data, segs, ctxs, dims, fixed_size=R, device=self.device)
-        else:
-            if sum(s.ray_count for s in segs) > R:
-                raise ValueError(f"the frame's rays exceed capacity {R}")
-            static, dda, alive0 = device_init.init_rays_device(
-                device_init.build_frame_params(cam_data, segs, ctxs), dims, R,
-                self.device)
         return FrameSetup(
             cam=cam, cam_data=cam_data, segs=segs, ctxs=ctxs,
-            vp_screen=vp_screen, tables=tables, static=static, dda=dda,
-            alive0=alive0,
+            vp_screen=vp_screen, tables=tables, static=None, dda=None,
+            alive0=None,
             iteration_direction=(
                 -1 if cam_data.inverse_element_iteration_direction else 1))
+
+    def init_rays_device(self, f: FrameSetup):
+        """A frame's initial rays built on the device (``host_init=False``):
+        (RayStatic, DDAState, alive0) of ``ray_capacity`` rays."""
+        R = self.ray_capacity
+        if sum(s.ray_count for s in f.segs) > R:
+            raise ValueError(f"the frame's rays exceed capacity {R}")
+        return device_init.init_rays_device(
+            device_init.build_frame_params(f.cam_data, f.segs, f.ctxs),
+            self.device_world.dims, R, self.device)
+
+    def frame_setup(self, cam: cm.Camera) -> FrameSetup:
+        """The host side of a frame: camera snapshot, segments, reprojection
+        tables and the initial rays on the device."""
+        f = self.frame_geometry(cam)
+        if self.config.host_init:
+            static, dda, alive0, _meta = ray_init.init_rays(
+                f.cam_data, f.segs, f.ctxs, self.device_world.dims,
+                fixed_size=self.ray_capacity, device=self.device)
+        else:
+            static, dda, alive0 = self.init_rays_device(f)
+        return f._replace(static=static, dda=dda, alive0=alive0)
 
     def march(self, f: FrameSetup, compact: bool | None = None) -> torch.Tensor:
         """Phase 1 of a frame: the raybuffer (R, P) int32 of color indices,
         or in ARGB mode of final colors.  ``compact`` True marches on a
         live-ray index, False marches every ray slot to the end, None does as
         the Renderer was created (``compact=``); the raybuffer is the same."""
+        return self.march_rays(f.static, f.dda, f.alive0, f.cam_data,
+                               f.cam_data.position[1], f.iteration_direction,
+                               compact)
+
+    def march_rays(self, static, dda, alive0, cam_data, cam_y,
+                   iteration_direction: int, compact: bool | None = None):
+        """``march`` on given rays: one camera's, or a batch of cameras'
+        marched together with ``cam_y`` a ray's camera height (R,) and the
+        LOD distances and far clip of ``cam_data`` (``parallel/batch.py``)."""
         if compact is None:
             compact = self.compact
         dims = self.device_world.dims
         chunk, max_chunks = self.march_params
         smin, smax = self.solid_bounds
         return raymarch.phase1(
-            self._wa, f.static, f.dda, f.alive0, f.cam_data.lod_distances,
-            f.cam_data.far_clip, dims[1], f.cam_data.position[1],
-            iteration_direction=f.iteration_direction, chunk=chunk,
+            self._wa, static, dda, alive0, cam_data.lod_distances,
+            cam_data.far_clip, dims[1], cam_y,
+            iteration_direction=iteration_direction, chunk=chunk,
             max_chunks=max_chunks, dims=dims, pixel_len=max(self.render_wh),
             solid_min_y=smin, solid_max_y=smax, kernels=self.kernels,
             gated_cells=self.gated_group_cells if self.occupancy_on else 0,

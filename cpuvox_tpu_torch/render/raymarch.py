@@ -477,7 +477,7 @@ def _rasterize_step(rs: RasterState, cell, static: RayStatic, consts,
     select chain does."""
     ids, lod, valid, n_runs, color_off, cmin, cmax, runs_k, colors = cell
     world_max_y = consts["world_max_y"]
-    cam_y = consts["cam_y"]
+    cam_y = consts["cam_y"]  # () or (R,): a camera height a ray
     cam_y_norm = consts["cam_y_norm"]
 
     alive = rs.alive & valid
@@ -705,7 +705,7 @@ def rasterize_cells(rs: RasterState, cells: CellFields, static: RayStatic,
         i = index.long()
         sub = rasterize_cells(
             RasterState(*(_take(f, i) for f in rs)), cells,
-            RayStatic(*(_take(f, i) for f in static)), consts,
+            RayStatic(*(_take(f, i) for f in static)), take_consts(consts, i),
             iteration_direction)
         return RasterState(*(_put(f, i, x) for f, x in zip(rs, sub)))
     max_runs = cells.runs.shape[-1]
@@ -718,29 +718,46 @@ def rasterize_cells(rs: RasterState, cells: CellFields, static: RayStatic,
 
 def raster_consts(world_max_y, cam_y, solid_min_y=None, solid_max_y=None,
                   device=None):
-    """Scalar constants of the rasterizer and the gate: f32 0-d tensors on
+    """Constants of the rasterizer and the gate: f32 0-d tensors on
     ``device`` for the plain version, and the same f32 values as host floats
     ("scalars") for the kernel's arguments.
+
+    ``cam_y`` is a scalar (one camera) or an (R,) array, a camera height a
+    ray (a batch of cameras marched together, ``raymarch.py:914-920``);
+    then "cam_y" and "cam_y_norm" are (R,) tensors and their scalars 0.
+    ``cam_y_norm = cam_y / world_max_y`` is an f32 divide either way, as the
+    reference computes it.
 
     The tensors live on the rays' device on purpose: torch divides a CUDA
     tensor by a CPU scalar as a multiply by its reciprocal, which is not the
     reference's divide."""
-    f = [None if x is None else np.float32(x)
-         for x in (world_max_y, cam_y, solid_min_y, solid_max_y)]
-    wmy, cy, smin, smax = f
+    wmy, smin, smax = (None if x is None else np.float32(x)
+                       for x in (world_max_y, solid_min_y, solid_max_y))
+    cy = np.asarray(cam_y, np.float32)
     cy_norm = cy / wmy  # f32 divide, as the reference computes it
 
     def t(x):
         return None if x is None else torch.tensor(x, dtype=torch.float32,
                                                    device=device)
 
+    per_ray = cy.ndim > 0
     return {
         "world_max_y": t(wmy), "cam_y": t(cy), "cam_y_norm": t(cy_norm),
         "solid_min_y": t(smin), "solid_max_y": t(smax),
         "gate_eps": t(np.float32(1e-5)),  # the gate's relative margin
         "scalars": tuple(None if x is None else float(x)
-                         for x in (wmy, cy, cy_norm, smin, smax)),
+                         for x in (wmy, 0.0 if per_ray else cy,
+                                   0.0 if per_ray else cy_norm, smin, smax)),
     }
+
+
+def take_consts(consts, index):
+    """``consts`` for the rays of a live-ray ``index``: a per-ray camera
+    height goes through the index like every other per-ray field."""
+    if index is None or consts["cam_y"].dim() == 0:
+        return consts
+    return {**consts, "cam_y": _take(consts["cam_y"], index),
+            "cam_y_norm": _take(consts["cam_y_norm"], index)}
 
 
 def init_raster_state(static: RayStatic, pixel_len: int) -> RasterState:
@@ -962,7 +979,7 @@ def gated_group(wa: WorldArrays, visits, rs: RasterState, consts,
     # narrowing is active and no earlier step of the chunk might have changed
     # it, the rasterizer's window is the frozen-fdir one, so a tile whose
     # [cmin, cmax] misses it (with a margin) is a provable skip_col
-    cam_y, wmy = consts["cam_y"], consts["world_max_y"]
+    cam_y, wmy = take_consts(consts, index)["cam_y"], consts["world_max_y"]
     fdmin = _take(rs.fdir_min, index)[None, :]
     fdmax = _take(rs.fdir_max, index)[None, :]
     fact0 = _take(rs.f_active, index)[None, :]
@@ -1091,7 +1108,8 @@ def phase1(wa: WorldArrays, static: RayStatic, dda: DDAState, alive0,
     """Full phase 1 (``raymarch.py:961`` and ``:997``): the dense march, or
     with ``gated_cells`` > 0 the occupancy-gated march in groups of that many
     cells, then the deferred skybox fill over all rays in their original
-    order.  Returns the (R, pixel_len) int32 raybuffer: color indices, or in
+    order.  ``cam_y`` is the camera's height, or (R,) a ray's camera's for a
+    batch of cameras (``parallel/batch.py``).  Returns the (R, pixel_len) int32 raybuffer: color indices, or in
     ARGB mode (``wa.max_col_colors`` > 0) final colors as int32 bits."""
     dev = static.dirs.device
     rs = init_raster_state(static, pixel_len)

@@ -207,6 +207,15 @@ def case_rle_save_round_trip(tmp_path):
     assert_same(js.load_world(str(tmp_path / "port.world")), a, "jax load")
 
 
+def case_expand_lod0():
+    from cpuvox_tpu.world import dynamic as jd
+    from cpuvox_tpu_torch.world import dynamic as td
+
+    for w in (scenes.random_world(dims=(16, 16, 16), n=250, seed=3),
+              scenes.deep_tower_world()[0], scenes.flat_floor_world()):
+        assert_same(td._expand_lod0(w), jd._expand_lod0(w), "voxel soup")
+
+
 def case_oracle_frame():
     from cpuvox_tpu.render import camera as jc, oracle as jo, segments as js
     from cpuvox_tpu.utils import colors as jcol

@@ -93,13 +93,13 @@ def torch_roll(fn, dda, alive, dirs, device="cpu", chunk=16, index=None,
             a.cpu().numpy(), v.cpu().numpy())
 
 
-def jax_roll(fn, dda, alive, dirs, chunk=16, **kw):
+def jax_roll(fn, dda, alive, dirs, chunk=16, lod_dist=LOD_DIST, **kw):
     import jax.numpy as jnp
     from cpuvox_tpu.render import raymarch as jrm
 
     jd = jrm.DDAState(**{k: jnp.asarray(v) for k, v in dda.items()})
     d, a, v = fn(jd, jnp.asarray(alive), jnp.asarray(dirs),
-                 jnp.asarray(LOD_DIST), jnp.float32(FAR), DIMS, chunk, **kw)
+                 jnp.asarray(lod_dist), jnp.float32(FAR), DIMS, chunk, **kw)
     return ({k: np.asarray(getattr(d, k)) for k in trm.DDAState._fields},
             np.asarray(a), jax_visits_as_stack(v))
 
@@ -137,6 +137,26 @@ def test_roll_matches_jax_scan(state):
         else frame_state()
     assert_same(torch_roll(trm._roll_chunk, dda, alive, dirs),
                 jax_roll(jrm._roll_chunk, dda, alive, dirs))
+
+
+def many_lods(nld):
+    """``nld`` LOD distances, close enough that the adversarial state's rays
+    switch past LOD 7 within a chunk of 48 steps."""
+    return np.arange(1, nld + 1, dtype=np.float32)
+
+
+@pytest.mark.parametrize("nld", [9, 10])
+def test_roll_matches_jax_scan_past_8_lods(nld):
+    """More LOD distances than the kernel holds in registers (lod_levels 9
+    and 10): rays reach LOD 8 and 9, and the plain roll equals JAX's."""
+    from cpuvox_tpu.render import raymarch as jrm
+
+    dda, alive, dirs = adversarial_state()
+    got = torch_roll(trm._roll_chunk, dda, alive, dirs, chunk=48,
+                     lod_dist=many_lods(nld))
+    assert got[2][:, 4].max() >= 8
+    assert_same(got, jax_roll(jrm._roll_chunk, dda, alive, dirs, chunk=48,
+                              lod_dist=many_lods(nld)))
 
 
 def test_roll_matches_jax_pallas_interpret():
@@ -222,9 +242,21 @@ def test_roll_kernel_at_chunk_128_and_on_an_index_on_cuda(cuda, state, chunk,
 
 
 @pytest.mark.cuda
-def test_roll_kernel_refuses_more_lods_than_it_holds_on_cuda(cuda):
+@pytest.mark.parametrize("nld,indexed", [(9, False), (10, False), (9, True)])
+def test_roll_kernel_refuses_more_lods_than_it_holds_on_cuda(cuda, nld,
+                                                             indexed):
+    """More LOD distances than ``MAX_LODS`` no longer raise: the kernel's
+    memory form rolls them, equal to the plain version, rays past LOD 7."""
+    assert nld > roll_kernel.MAX_LODS
     dda, alive, dirs = adversarial_state()
-    lod_dist = np.arange(1, roll_kernel.MAX_LODS + 2, dtype=np.float32)
-    with pytest.raises(ValueError, match="LOD distances"):
-        torch_roll(roll_kernel.roll_chunk, dda, alive, dirs, cuda,
-                   lod_dist=lod_dist)
+    index = None
+    if indexed:
+        index = np.arange(0, alive.shape[0], 3, dtype=np.int32)
+    before = roll_kernel.launches
+    got = torch_roll(roll_kernel.roll_chunk, dda, alive, dirs, cuda, 48,
+                     index, lod_dist=many_lods(nld))
+    torch.cuda.synchronize()
+    assert roll_kernel.launches == before + 1
+    assert got[2][:, 4].max() >= 8
+    assert_same(got, torch_roll(roll_kernel.roll_chunk_ref, dda, alive, dirs,
+                                cuda, 48, index, lod_dist=many_lods(nld)))
