@@ -84,14 +84,37 @@ non-zero (no phase catches its own failure):
    through the kernels == the plain path; 12 timed frames (fps, the
    rebuild's and the render's ms) for each setting; an editable 64^3 world
    after three ``set_voxel_column`` edits and a chain snapshot, card == CPU
-   word for word, its frames through the kernels == plain.
+   word for word, its frames through the kernels == plain;
+11. the mesh path (``assets/``, ``world/rle_device.py``,
+   ``frontend/interactive.py``) on the procedural town (``bench/meshes.py``;
+   the reference's mill.obj is not in the repository): (a) voxio built with
+   g++, the town parsed natively == by the python parser, every array; (b)
+   the whole conversion on the card at ``max_dimension`` 512, 6 LODs ==
+   the numpy pipeline in every field of every LOD, and the card's chain
+   with ``cascade=False`` too; (c) the conversion at 2048 twice, cold (the
+   mesh path's first conversion in the process, made before (b)) and
+   steady, each stage synced (``bench/harness.run_convert``), through the
+   device voxelizer (counted), ``rle.validate_world`` on every LOD (in a
+   child process while the card goes on), the card's soup of a seeded
+   eighth of the triangles == ``voxelize_mesh`` of it, the LOD0 voxels,
+   max_runs and empty_frac; (d) a solid white 256^3 block at
+   ``lod_levels`` 9, every LOD all white (LOD 8's channel sums pass 2^31);
+   (e) ``InteractiveSession`` over the 2048 world (gate on) at 320x180 and
+   1920x1080 with ``bench.py:302-309``'s inputs: the first 4 steps and the
+   first step through the kernels == a plain session's, render modes 2
+   and 3 == plain, 0 magenta, then the timed steps (step p50, launches a
+   step); (f) the same 1080p steps replayed twice from the same state: each
+   stage synced (controllers, frame setup, march, phase 2, frame copy),
+   then under ``torch.profiler`` (the device busy share), and
+   ``FrameProfiler`` with CUDA events around 8 more steps at each size.
 
 The three flythrough Renderers are created with ``compact=True`` (the march
 on a live-ray index; the Renderer's default is the full-width march, which
 the oracle check, the split-layout frame and a variant of each small frame
 run).  Kernel launch counts are set to 0 just before each flythrough, the
-rollout's first timed run and the dynamic terrain's (``exact_lod1`` off)
-timed run, and read just after it; launches made to compare or time a
+rollout's first timed run, the dynamic terrain's (``exact_lod1`` off)
+timed run and the mesh path's 1080p interactive run (two warmup steps and
+24 timed), and read just after each; launches made to compare or time a
 kernel are not counted.  The last lines are the card line, one JSON line of
 kernels (``launches_by_path`` per path; the batched phase 2,
 ``reproject_screens``, has its own entry), and
@@ -910,6 +933,22 @@ def check_rollout(card: str, stats: dict) -> dict:
                     "device_ms": device_ms(lambda _: fn(*args),
                                            lambda: None, 4)}
     p2["plain_ms"] = time_ms(lambda _: rk.reproject_screens_ref(*args), 3)
+    # the library calls of the sample alone: one gather and one where a pass
+    # over the whole group's raybuffer, each camera's ray indices offset to
+    # its block of R1 rows
+    raybuf, R1 = args[0], args[2]
+    maps = [sample_maps(r, t) for t in args[1]]
+    batch_maps = [(torch.cat([m[k][0].long() + b * R1
+                              for b, m in enumerate(maps)]),
+                   torch.cat([m[k][1] != 0 for m in maps])) for k in (0, 1)]
+
+    def gather_where(_):
+        return [torch.where(m, torch.gather(raybuf, 0, ri), -1)
+                for ri, m in batch_maps]
+
+    time_ms(gather_where, 3)  # warm
+    p2["library_ms"] = time_ms(gather_where, 20)
+    p2["library_device_ms"] = device_ms(gather_where, lambda: None, 10)
     work = rollout_work(r, args)
     p2["bound_ms"], p2["bound_by"] = bound(*work)
     p2["bytes"], p2["operations"] = int(work[0]), int(work[1])
@@ -920,7 +959,10 @@ def check_rollout(card: str, stats: dict) -> dict:
         f"reproject_screen a camera ({len(group)} launches) "
         f"{p2['per camera']['ms']:.4f} ms a call, "
         f"{p2['per camera']['device_ms']:.4f} ms on the device; plain "
-        f"{p2['plain_ms']:.4f} ms; bound {p2['bound_ms']:.4f} ms "
+        f"{p2['plain_ms']:.4f} ms; library (torch.gather + where over the "
+        f"group's raybuffer, the sample alone) {p2['library_ms']:.4f} ms a "
+        f"call, {p2['library_device_ms']:.4f} ms on the device; bound "
+        f"{p2['bound_ms']:.4f} ms "
         f"({p2['bound_by']}: {p2['bytes']} B); both == plain camera by "
         f"camera, 0 pixels differ ({card})")
 
@@ -1142,6 +1184,382 @@ def check_dynamic(card: str, stats: dict) -> dict:
         f"{K}) on the card == on the CPU, 0 words differ; its LOD0 and chain "
         f"{SMALL_WH[0]}x{SMALL_WH[1]} frames through the kernels == plain")
     return out
+
+
+# ------------------------------------------------------------- the mesh path
+
+MESH_MAX_DIM = 2048
+MESH_CHECK_DIM = 512
+MESH_LOD_LEVELS = 6
+# the white block's side and its LODs: LOD 8 holds 256^3 / 8^8 = 1 voxel
+MESH_BLOCK, MESH_BLOCK_LODS = 256, 9
+MESH_PLAIN_STEPS = {SMALL_WH: 4, MAIN_WH: 1}
+WORLD_FIELDS = ("col_offset", "col_runs", "col_color_offset", "col_min",
+                "col_max", "runs", "colors")
+
+
+def compare_worlds(name: str, got, want) -> None:
+    """Two LOD chains equal in every field of every level, dtypes too."""
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} levels, {len(want)} wanted")
+    for L, (g, w) in enumerate(zip(got, want)):
+        if (g.dims, g.lod) != (w.dims, w.lod):
+            raise AssertionError(f"{name}: LOD {L} dims/lod differ")
+        for f in WORLD_FIELDS:
+            a, b = getattr(g, f), getattr(w, f)
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError(f"{name}: LOD {L} field {f} differs")
+
+
+def validate_in_child(path: str) -> subprocess.Popen:
+    """``rle.validate_world`` on every LOD of the .world file at ``path``,
+    in a child process (a python loop over the occupied columns: a minute
+    and more at LOD 0 of a 2048-wide world) that runs while the card works
+    on the next checks; ``finish_validation`` waits for it."""
+    code = ("import sys, time\n"
+            "from cpuvox_tpu_torch.world import rle, save\n"
+            "for w in save.load_world(sys.argv[1]):\n"
+            "    t0 = time.perf_counter()\n"
+            "    rle.validate_world(w)\n"
+            "    print(f'LOD {w.lod}: {int((w.col_runs > 0).sum())} "
+            "occupied columns valid in {time.perf_counter() - t0:.1f} s', "
+            "flush=True)\n")
+    return subprocess.Popen([sys.executable, "-c", code, path],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, cwd=os.path.dirname(
+                                os.path.abspath(__file__)))
+
+
+def finish_validation(proc: subprocess.Popen, timeout: float = 300) -> None:
+    t0 = time.perf_counter()
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    if proc.returncode:
+        raise AssertionError(f"rle.validate_world failed:\n{out}")
+    log(f"[mesh] (c) rle.validate_world on every LOD (a child process; "
+        f"waited {time.perf_counter() - t0:.1f} s for it): "
+        + "; ".join(out.strip().splitlines()))
+
+
+def copy_session(s):
+    """An ``InteractiveSession`` on the same renderer from ``s``'s camera
+    and controller state, to replay ``s``'s next steps."""
+    return dataclasses.replace(s, look=dataclasses.replace(s.look),
+                               fly=dataclasses.replace(s.fly), frame_times=[])
+
+
+def split_steps(replays, timed: dict, card: str):
+    """``run_interactive``'s warmup and timed steps replayed on two copies
+    of its session: on the first, each step split into its stages, each
+    synced, host clock (ms a step: medians, and the range), and each step's
+    march beside its gated iterations (rasterize launches); on the second,
+    the timed steps under ``torch.profiler``, whose device activities'
+    union over the steps' unprofiled wall is the device busy share.
+    Returns (the stages' medians, the busy share)."""
+    from cpuvox_tpu_torch.bench import harness
+    from cpuvox_tpu_torch.bench.breakdown import device_activities, union_us
+    from cpuvox_tpu_torch.ops import phase1_kernel
+
+    s, sp = replays
+    r = s.renderer
+    inputs = harness.interactive_inputs(timed["n_steps"])
+    stages = {k: [] for k in ("controllers", "frame setup", "march",
+                              "phase 2", "frame copy")}
+    iters = []
+    for kw in harness.WARMUP_INPUTS:
+        s.step(1 / 30, **kw)
+    for kw in inputs:
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        s.cam = s.fly.update(s.look.update(s.cam, kw["mouse_dx"],
+                                           kw["mouse_dy"]), 1 / 30,
+                             forward=kw["forward"])
+        t.append(time.perf_counter())
+        f = r.frame_setup(s.cam)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        n0 = phase1_kernel.launches
+        rb = r.march(f)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        iters.append(phase1_kernel.launches - n0)
+        screen = r.phase2(f, rb)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        screen.cpu().numpy()
+        t.append(time.perf_counter())
+        for k, a, b in zip(stages, t, t[1:]):
+            stages[k].append((b - a) * 1e3)
+    total = [sum(v) for v in zip(*stages.values())]
+    per_iter = [m / max(n, 1) for m, n in zip(stages["march"], iters)]
+    for kw in harness.WARMUP_INPUTS:
+        sp.step(1 / 30, **kw)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for kw in inputs:
+            sp.step(1 / 30, **kw)
+        torch.cuda.synchronize()
+    dev = device_activities(prof)
+    if not dev:
+        raise AssertionError("[mesh] (f) the profiler recorded no device "
+                             "activity")
+    busy_ms = union_us((a, b) for _n, a, b in dev) / 1e3 / len(inputs)
+    wall_ms = timed["step_ms_mean"]
+    log(f"[mesh] (f) {MAIN_WH[0]}x{MAIN_WH[1]}: the timed steps replayed, "
+        "each stage synced (median, min-max ms a step): "
+        + ", ".join(f"{k} {np.median(v):.3f} ({min(v):.3f}-{max(v):.3f})"
+                    for k, v in stages.items())
+        + f"; all stages {np.median(total):.3f} ({min(total):.3f}-"
+        f"{max(total):.3f}); march ms / gated iterations, step by step: "
+        + " ".join(f"{m:.1f}/{n}" for m, n in zip(stages["march"], iters))
+        + f", {np.median(per_iter):.3f} ({min(per_iter):.3f}-"
+        f"{max(per_iter):.3f}) ms an iteration; the timed steps "
+        f"{timed['step_ms_min']:.3f}-{timed['step_ms_max']:.3f}, p50 "
+        f"{timed['step_ms_p50']:.3f}, mean "
+        f"{wall_ms:.3f}; replayed under the profiler: device busy "
+        f"{busy_ms:.3f} ms a step of the timed mean {wall_ms:.3f} ms: busy "
+        f"share {busy_ms / wall_ms:.4f} ({len(dev)} device activities) "
+        f"({card})")
+    return {k: float(np.median(v)) for k, v in stages.items()}, \
+        busy_ms / wall_ms
+
+
+def check_mesh(card: str, dev: torch.device) -> dict:
+    """The asset pipeline and the interactive frontend on the card: the
+    procedural town (``bench/meshes.py``) parsed natively and in python, its
+    conversion at 512 against the numpy pipeline, at 2048 cold and steady
+    (``bench/harness.run_convert``), the int64 cascade on a white block, and
+    ``InteractiveSession`` over the converted world at 320x180 and
+    1920x1080, kernels against the plain path, then timed; the mesh path's
+    kernel counts are set to 0 just before the 1080p timed steps and read
+    after."""
+    from cpuvox_tpu_torch.assets import native, voxelizer
+    from cpuvox_tpu_torch.assets.mesh import SimpleMesh, rescale
+    from cpuvox_tpu_torch.assets.obj import _import_obj_python, import_obj
+    from cpuvox_tpu_torch.assets.pipeline import convert_obj_to_world
+    from cpuvox_tpu_torch.bench import harness
+    from cpuvox_tpu_torch.frontend.interactive import InteractiveSession
+    from cpuvox_tpu_torch.ops import phase1_kernel, roll_kernel
+    from cpuvox_tpu_torch.ops import reproject_kernel as rk
+    from cpuvox_tpu_torch.utils.profiling import FrameProfiler
+    from cpuvox_tpu_torch.world import rle_device, save
+
+    # (a) the parser: voxio built with g++, native == python, every array
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native .obj parser (csrc/voxio.cpp) did "
+                             "not build")
+    t_build = time.perf_counter() - t0
+    path = harness.town_obj(log=log)
+    t0 = time.perf_counter()
+    a = import_obj(path)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = _import_obj_python(path)
+    t_python = time.perf_counter() - t0
+    for f in ("positions", "colors", "uvs", "material_index"):
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            raise AssertionError(f"[mesh] (a) {f}: native != python")
+    if a.materials or b.materials:
+        raise AssertionError("[mesh] (a) the town has no materials")
+    log(f"[mesh] (a) voxio built with g++ in {t_build:.1f} s; the town "
+        f"({a.triangle_count} triangles) parsed natively in {t_native:.3f} s "
+        f"== by the python parser ({t_python:.3f} s), all 4 arrays")
+
+    # (c) first, so that its cold conversion is the mesh path's first in the
+    # process: the 2048 conversion, cold and steady, each stage synced
+    calls = (voxelizer.device_calls, voxelizer.host_calls)
+    conv, lods = harness.run_convert(path, MESH_MAX_DIM, MESH_LOD_LEVELS,
+                                     device=dev, log=log)
+    if (voxelizer.device_calls - calls[0], voxelizer.host_calls - calls[1]) \
+            != (2, 0):
+        raise AssertionError("[mesh] (c) the conversion did not run the "
+                             "device voxelizer")
+
+    # (b) the whole pipeline at 512 on the card == the numpy pipeline
+    t0 = time.perf_counter()
+    want = convert_obj_to_world(path, MESH_CHECK_DIM,
+                                lod_levels=MESH_LOD_LEVELS, device=None)
+    t_numpy = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = convert_obj_to_world(path, MESH_CHECK_DIM,
+                               lod_levels=MESH_LOD_LEVELS, device=dev)
+    t_card = time.perf_counter() - t0
+    compare_worlds("[mesh] (b) card pipeline", got, want)
+    mesh = import_obj(path)
+    dims = rescale(mesh, MESH_CHECK_DIM)
+    soup = voxelizer.voxelize_mesh_device(mesh, dims, device=dev,
+                                          return_device=True)
+    compare_worlds("[mesh] (b) cascade off", rle_device.build_lod_chain_device(
+        *soup, dims, MESH_LOD_LEVELS, cascade=False), want)
+    log(f"[mesh] (b) the town at max_dimension {MESH_CHECK_DIM} {dims}, "
+        f"{want[0].voxel_count} LOD0 voxels: the card's pipeline "
+        f"({t_card:.2f} s) == the numpy pipeline ({t_numpy:.2f} s) in "
+        f"all 7 fields of all {MESH_LOD_LEVELS} LODs, and so is the card's "
+        "chain with cascade=False")
+    del got, want, soup
+
+    # (c) the 2048 world: valid, the eighth's soup, the numbers
+    world_path = os.path.join(harness.CACHE_DIR, f"town{MESH_MAX_DIM}.world")
+    save.save_world(world_path, lods)
+    validator = validate_in_child(world_path)
+    try:
+        mesh = import_obj(path)
+        dims = rescale(mesh, MESH_MAX_DIM)
+        n_cand = voxelizer.triangle_tables(mesh, dims, dev)["total"]
+        n_tris = mesh.triangle_count
+        pick = np.sort(np.random.default_rng(8).choice(n_tris, n_tris // 8,
+                                                       replace=False))
+        rows = (pick[:, None] * 3 + np.arange(3)).ravel()
+        eighth = SimpleMesh(positions=mesh.positions[rows],
+                            colors=mesh.colors[rows], uvs=mesh.uvs[rows],
+                            material_index=mesh.material_index[rows])
+        t0 = time.perf_counter()
+        want = voxelizer.voxelize_mesh(eighth, dims)
+        t_numpy = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = voxelizer.voxelize_mesh_device(eighth, dims, device=dev)
+        t_card = time.perf_counter() - t0
+        for k, (x, y) in enumerate(zip((*want[:2], *want[2]),
+                                       (*got[:2], *got[2]))):
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                raise AssertionError(f"[mesh] (c) the eighth's soup, array "
+                                     f"{k}: card != numpy")
+        cand = voxelizer.triangle_tables(eighth, dims, dev)["total"]
+        stages = conv["stages_steady"]
+        log(f"[mesh] (c) the town at max_dimension {MESH_MAX_DIM} "
+            f"{tuple(dims)}: {conv['lod0_voxels']} LOD0 voxels, max_runs "
+            f"{conv['max_runs']}, empty_frac {conv['empty_frac']:.4f}; "
+            f"converted on the card {conv['seconds_cold']:.3f} s cold "
+            f"(before (b)), "
+            f"{conv['seconds_steady']:.3f} s steady ("
+            + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+            + f" s), {conv['voxels_per_sec']:.0f} LOD0 voxels a second; "
+            f"{n_cand} voxelizer candidates, "
+            f"{n_cand / stages['voxelize']:.0f} a second in the steady "
+            f"voxelize stage ({card})")
+        log(f"[mesh] (c) a seeded eighth of the triangles ({len(pick)}, "
+            f"{cand} candidates, {want[0].shape[0]} voxels): the card's soup "
+            f"({t_card:.3f} s, {cand / t_card:.0f} candidates a second) == "
+            f"voxelize_mesh ({t_numpy:.2f} s), values and order")
+        del mesh, eighth, want, got
+
+        # (d) the int64 cascade: a solid white 256^3 block at lod_levels 9,
+        # whose LOD 8 red sum 255 * 2^24 passes 2^31
+        n = MESH_BLOCK
+        ar = torch.arange(n, device=dev)
+        x, z, y = torch.meshgrid(ar, ar, ar, indexing="ij")
+        white = torch.full((n ** 3,), 0xFFFFFF, dtype=torch.int64, device=dev)
+        t0 = time.perf_counter()
+        block = rle_device.build_lod_chain_device(
+            (x * n + z).reshape(-1), y.reshape(-1), white, None, (n, n, n),
+            MESH_BLOCK_LODS)
+        t_block = time.perf_counter() - t0
+        for w in block:
+            if w.voxel_count != (n >> w.lod) ** 3 or \
+                    not (w.colors == np.uint32(0xFFFFFFFF)).all():
+                raise AssertionError(f"[mesh] (d) LOD {w.lod} of the white "
+                                     "block is not all white")
+        top = block[-1]
+        log(f"[mesh] (d) a solid white {n}^3 block at lod_levels "
+            f"{MESH_BLOCK_LODS} ({t_block:.2f} s): every LOD all white, LOD "
+            f"{top.lod} {top.voxel_count} voxel(s) (red sum 255 * "
+            f"{(1 << top.lod) ** 3} = {255 * (1 << top.lod) ** 3}, carried in "
+            "int64)")
+        del x, z, y, white, block
+
+        # (e) InteractiveSession over the 2048 world: kernels == plain, then
+        # timed (the validator child is waited for first)
+        whs = (SMALL_WH, MAIN_WH)
+        inputs = harness.WARMUP_INPUTS + harness.interactive_inputs()
+        sessions = harness.interactive_sessions(lods, whs, device=dev)
+        renderers = [s.renderer for s in sessions]
+        for (w, h), s in zip(whs, sessions):
+            if not s.renderer.occupancy_on:
+                raise AssertionError("[mesh] (e) the town's gate resolved off")
+            plain = dataclasses.replace(s, renderer=dataclasses.replace(
+                s.renderer, config=dataclasses.replace(s.renderer.config,
+                                                       backend="xla")),
+                look=dataclasses.replace(s.look),
+                fly=dataclasses.replace(s.fly), frame_times=[])
+            k = MESH_PLAIN_STEPS[(w, h)]
+            for kw in inputs[:k]:
+                got, want = s.step(1 / 30, **kw), plain.step(1 / 30, **kw)
+                compare(f"mesh {w}x{h} step",
+                        [torch.from_numpy(got.view(np.int32))],
+                        [torch.from_numpy(want.view(np.int32))], {})
+                if (got == np.uint32(0xFFFF1493)).any():
+                    raise AssertionError(f"[mesh] (e) magenta at {w}x{h}")
+            line = (f"[mesh] (e) {w}x{h}: the first {k} step(s) through the "
+                    f"kernels == the plain session's (plain "
+                    f"{plain.frame_times[0]:.2f} s a frame), 0 pixels differ, "
+                    "0 magenta")
+            if (w, h) == SMALL_WH:
+                for mode in (2, 3):
+                    got = s.step(0.0, mode=mode)
+                    want = plain.step(0.0, mode=mode)
+                    compare(f"mesh mode {mode}", [torch.from_numpy(
+                        got.view(np.int32))], [torch.from_numpy(
+                            want.view(np.int32))], {})
+                line += "; render modes 2 and 3 (the raybuffers) == plain"
+            log(line)
+            del plain, s
+        finish_validation(validator)
+    finally:
+        if validator.poll() is None:  # a check above failed
+            validator.kill()
+            validator.communicate()
+
+    sessions = [InteractiveSession.create(None, renderer=dataclasses.replace(
+        r, lod_distances=None)) for r in renderers]
+    metrics = harness.run_interactive(None, whs=whs[:1], sessions=sessions[:1],
+                                      log=log)
+    replays = [copy_session(sessions[1]) for _ in range(2)]
+    for m in (roll_kernel, phase1_kernel, rk):
+        m.launches = 0
+    rk.screens_launches = 0
+    metrics.update(harness.run_interactive(None, whs=whs[1:],
+                                           sessions=sessions[1:], log=log))
+    launches = {"roll_chunk": roll_kernel.launches,
+                "rasterize_visits": phase1_kernel.launches,
+                "reproject_screen": rk.launches,
+                "reproject_screens": rk.screens_launches}
+    if min(launches[k_[0]] for k_ in KERNELS) <= 0:
+        raise AssertionError(f"[mesh] (e) launches {launches}: a kernel of "
+                             "the path did not run")
+    for wh, m in metrics.items():
+        if m["magenta_pixels"] or not m["gate"]:
+            raise AssertionError(f"[mesh] (e) {wh}: {m['magenta_pixels']} "
+                                 f"magenta pixels, gate {m['gate']}")
+        per = m["launches_per_step"]
+        log(f"[mesh] (e) interactive {wh}, {m['n_steps']} steps: step p50 "
+            f"{m['step_ms_p50']:.3f} ms, {m['fps']:.3f} fps; launches a step: "
+            f"roll {per['roll_chunk']:.1f}, rasterize "
+            f"{per['rasterize_visits']:.1f}, phase 2 "
+            f"{per['reproject_screen']:.1f} ({card})")
+
+    # (f) where the 1080p steps' time goes: the same steps from the same
+    # state, each stage synced, then under the profiler
+    m = metrics[f"{MAIN_WH[0]}x{MAIN_WH[1]}"]
+    m["split_ms"], m["busy_share"] = split_steps(replays, m, card)
+
+    # FrameProfiler: events around more of the same steps
+    prof = FrameProfiler(dev)
+    for (w, h), s in zip(whs, sessions):
+        for kw in harness.interactive_inputs(8):
+            with prof.scope(f"step {w}x{h}"):
+                s.step(1 / 30, **kw)
+    log("[mesh] (f) FrameProfiler (CUDA events around 8 more steps each, "
+        "the flight going on past the timed steps):\n"
+        + prof.report())
+    return {"convert": conv, "interactive": metrics, "launches": launches}
 
 
 def time_ms(fn, reps: int, setup=lambda: None) -> float:
@@ -1621,6 +2039,8 @@ def main() -> int:
     log(f"[rollout] done at {time.perf_counter() - t_start:.1f} s")
     dynamic = check_dynamic(card, stats)
     log(f"[dynamic] done at {time.perf_counter() - t_start:.1f} s")
+    mesh = check_mesh(card, dev)
+    log(f"[mesh] done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for kname, src, replaces in KERNELS:
@@ -1657,7 +2077,8 @@ def main() -> int:
                 "terrain2048_argb": a_launches[kname],
                 "layered2048": l_launches[kname],
                 "rollout64_256x256": rollout["launches"][kname],
-                "dynamic512_1280x720": dynamic["launches"][kname]},
+                "dynamic512_1280x720": dynamic["launches"][kname],
+                "mesh2048_1920x1080": mesh["launches"][kname]},
             "terrain2048": tt, "terrain2048_argb": at})
     # phase 2 of a camera batch: the batched variant of reproject_screen,
     # timed at the rollout's shapes (a direction group of 32 cameras)
@@ -1670,15 +2091,22 @@ def main() -> int:
         "max_abs_err": stats["reproject_screens"]["max_abs_err"],
         "ms": p2["batched"]["ms"], "device_ms": p2["batched"]["device_ms"],
         "plain_ms": p2["plain_ms"], "bound_ms": p2["bound_ms"],
-        "bound_by": p2["bound_by"], "library_ms": None,
+        "bound_by": p2["bound_by"], "library_ms": p2["library_ms"],
+        "library_device_ms": p2["library_device_ms"],
         "per_camera_launches": p2["per camera"],
         "launches_by_path": {
-            "rollout64_256x256": rollout["launches"]["reproject_screens"]}})
+            "rollout64_256x256": rollout["launches"]["reproject_screens"],
+            "mesh2048_1920x1080": mesh["launches"]["reproject_screens"]}})
     log(f"[summary] rollout cams/s (compaction off, on): "
         f"{rollout['cams_per_sec'][False]}, {rollout['cams_per_sec'][True]}, "
         f"busy share {rollout['busy_share']:.4f}; dynamic fps exact_lod1 "
         f"False {dynamic[False]['fps']:.3f}, True {dynamic[True]['fps']:.3f} "
         f"({card})")
+    conv, inter = mesh["convert"], mesh["interactive"]
+    log(f"[summary] town{MESH_MAX_DIM} conversion {conv['seconds_cold']:.3f} s "
+        f"cold, {conv['seconds_steady']:.3f} s steady; interactive step p50 "
+        + ", ".join(f"{wh} {m['step_ms_p50']:.3f} ms" for wh, m in inter.items())
+        + f" ({card})")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -3,6 +3,8 @@ rollout and dynamic modes) on a CUDA card.
 
     python -m cpuvox_tpu_torch.bench.harness rollout [--compact]
     python -m cpuvox_tpu_torch.bench.harness dynamic [--exact-lod1]
+    python -m cpuvox_tpu_torch.bench.harness convert
+    python -m cpuvox_tpu_torch.bench.harness interactive
 
 ``run_flythrough`` renders frames evenly spaced along the benchmark path and
 reports the JAX harness's metric names: ``fps``, ``frame_ms_p50`` and
@@ -11,6 +13,14 @@ reports the JAX harness's metric names: ``fps``, ``frame_ms_p50`` and
 ``rollout64_cams_per_sec_256x256``; ``run_dynamic`` rebuilds and renders a
 dynamic terrain a frame (``models/dynamic_demo.py``, ``bench.py:254-282``)
 and reports ``fps_dynamic512_1280x720_rebuild_per_frame``.
+``run_convert`` converts an .obj to a world on the card twice (the cold and
+the steady-state seconds, each stage synced; ``bench.py``'s
+``convert_<scene>_seconds_steady_state``), and ``run_interactive`` drives an
+``InteractiveSession`` with ``bench.py:285-316``'s scripted inputs and
+reports its step p50 (the CLI names it
+``interactive_step_ms_p50_<scene>_<W>x<H>``); the CLI runs both on the
+procedural town (``bench/meshes.py``) while the reference's mill.obj is not
+in the repository.
 A frame's time is the host clock around ``render_device`` up to a
 ``torch.cuda.synchronize()``; the device span of the same frame, from CUDA
 events, is reported beside it (``frame_gpu_ms_p50``).  The march checks ray
@@ -285,9 +295,131 @@ def run_dynamic(terrain, n_frames: int = 12,
     }
 
 
+def town_obj(log=lambda *a: print(*a, file=sys.stderr)) -> str:
+    """The procedural town's .obj (``bench/meshes.py``, seed 0), written to
+    .bench_cache/town.obj."""
+    from cpuvox_tpu_torch.bench import meshes
+
+    os.makedirs(CACHE_DIR, exist_ok=True)
+    path = os.path.join(CACHE_DIR, "town.obj")
+    counts = meshes.write_town_obj(path, seed=0)
+    log(f"[town] {path}: {counts}")
+    return path
+
+
+def run_convert(obj_path: str, max_dim: int = 2048, lod_levels: int = 6,
+                device="cuda", log=lambda *a: print(*a, file=sys.stderr)):
+    """Convert ``obj_path`` to a world on the card twice, each stage synced
+    (``assets/pipeline.py``): the first conversion pays the process's first
+    launches (cold), the second is the steady state (``bench.py``'s
+    ``convert_*_seconds_steady_state``).  Returns the metrics and the
+    second conversion's LODs."""
+    from cpuvox_tpu_torch.assets import voxelizer
+    from cpuvox_tpu_torch.assets.pipeline import convert_obj_to_world
+
+    if torch.device(device).type != "cuda":
+        raise RuntimeError(f"run_convert times a CUDA device, not {device}")
+    runs = []
+    for label in ("cold", "steady"):
+        timings: dict = {}
+        calls = voxelizer.device_calls
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lods = convert_obj_to_world(obj_path, max_dimension=max_dim,
+                                    lod_levels=lod_levels, device=device,
+                                    timings=timings)
+        total = time.perf_counter() - t0
+        if voxelizer.device_calls != calls + 1:
+            raise AssertionError("the conversion did not run the device "
+                                 "voxelizer")
+        runs.append((total, timings))
+        log(f"[convert] {label}: {total:.3f} s; " + ", ".join(
+            f"{k} {v:.3f}" for k, v in timings.items()))
+    w0 = lods[0]
+    steady, st = runs[1]
+    name = os.path.splitext(os.path.basename(obj_path))[0]
+    return {
+        f"convert_{name}{max_dim}_seconds_steady_state": steady,
+        "seconds_cold": runs[0][0], "seconds_steady": steady,
+        "stages_cold": runs[0][1], "stages_steady": st,
+        "dims": list(w0.dims), "lod0_voxels": w0.voxel_count,
+        "voxels_per_sec": w0.voxel_count / steady,
+        "max_runs": int(w0.col_runs.max()) if w0.n_cols else 0,
+        "empty_frac": float((w0.col_runs == 0).mean()),
+        "device": torch.cuda.get_device_name(device),
+    }, lods
+
+
+# bench.py:302-309: two warmup steps (the second flips the pitch, so both
+# iteration directions are warm), then 24 steps of forward flight while
+# turning, the pitch rocking every 4 steps
+WARMUP_INPUTS = [dict(forward=0.0), dict(mouse_dy=40.0)]
+
+
+def interactive_inputs(n_steps: int = 24) -> list[dict]:
+    """The scripted inputs of the timed steps, at 1/30 s a step."""
+    return [dict(forward=1.0, mouse_dx=6.0,
+                 mouse_dy=2.0 if i % 8 < 4 else -2.0) for i in range(n_steps)]
+
+
+def interactive_sessions(lods, whs, device="cuda"):
+    """An ``InteractiveSession`` a resolution over one device world, each at
+    the reference's spawn camera."""
+    import dataclasses
+
+    from cpuvox_tpu_torch.config import RenderConfig
+    from cpuvox_tpu_torch.frontend.interactive import InteractiveSession
+    from cpuvox_tpu_torch.render.frame import Renderer
+
+    r = Renderer.create(lods, RenderConfig(width=whs[0][0],
+                                           height=whs[0][1]), device=device)
+    return [InteractiveSession.create(None, renderer=dataclasses.replace(
+        r, config=dataclasses.replace(r.config, width=w, height=h),
+        lod_distances=None)) for w, h in whs]
+
+
+def run_interactive(lods, whs=((320, 180), (1920, 1080)), n_steps: int = 24,
+                    sessions=None, log=lambda *a: print(*a, file=sys.stderr)):
+    """``bench.py:285-316``: an ``InteractiveSession`` a resolution, two
+    warmup steps, then ``n_steps`` scripted steps, each waiting for its
+    frame as a user at the screen does; the step's render time
+    (``frame_times``) p50 in ms, as ``bench.py`` takes it (the sorted
+    times' element ``n // 2``), and the kernels' launches a step."""
+    if sessions is None:
+        sessions = interactive_sessions(lods, whs)
+    out = {}
+    for (w, h), s in zip(whs, sessions):
+        _require_cuda(s.renderer, "run_interactive")
+        t0 = time.perf_counter()
+        for kw in WARMUP_INPUTS:
+            s.step(1 / 30, **kw)
+        log(f"[interactive] {w}x{h} warmup {time.perf_counter() - t0:.2f}s")
+        s.frame_times.clear()
+        before = _launch_counts()
+        magenta = 0
+        for kw in interactive_inputs(n_steps):
+            magenta += int((s.step(1 / 30, **kw) == np.uint32(
+                MAGENTA_I32 & 0xFFFFFFFF)).sum())
+        after = _launch_counts()
+        lat = sorted(s.frame_times)
+        p50 = lat[len(lat) // 2] * 1e3
+        out[f"{w}x{h}"] = {
+            "step_ms_p50": p50, "step_ms_min": lat[0] * 1e3,
+            "step_ms_max": lat[-1] * 1e3,
+            "step_ms_mean": sum(lat) / len(lat) * 1e3,
+            "fps": len(lat) / sum(lat),
+            "n_steps": n_steps, "magenta_pixels": magenta,
+            "gate": s.renderer.occupancy_on,
+            "launches_per_step": {k: (after[k] - before[k]) / n_steps
+                                  for k in after},
+            "device": torch.cuda.get_device_name(s.renderer.device)}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", choices=["rollout", "dynamic"])
+    ap.add_argument("mode", choices=["rollout", "dynamic", "convert",
+                                     "interactive"])
     ap.add_argument("--compact", action="store_true",
                     help="march on a live-ray index")
     ap.add_argument("--exact-lod1", action="store_true",
@@ -298,6 +430,15 @@ def main(argv=None) -> int:
         return 2
     if args.mode == "rollout":
         m = run_rollout(rollout_renderer(compact=args.compact))
+    elif args.mode in ("convert", "interactive"):
+        path, max_dim = town_obj(), 2048
+        m, lods = run_convert(path, max_dim)
+        if args.mode == "interactive":
+            scene = os.path.splitext(os.path.basename(path))[0] + str(max_dim)
+            inter = run_interactive(lods)
+            for wh, mi in inter.items():
+                mi[f"interactive_step_ms_p50_{scene}_{wh}"] = mi["step_ms_p50"]
+            m = {"convert": m, "interactive": inter}
     else:
         m = run_dynamic(dynamic_terrain(exact_lod1=args.exact_lod1,
                                         compact=args.compact))

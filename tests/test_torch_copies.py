@@ -3,8 +3,10 @@ their originals: the same inputs give the same arrays, bit for bit.
 
 The port imports nothing of ``cpuvox_tpu``; it carries its own copies of
 ``config``, ``models/procedural``, ``render/{camera,segments,device,oracle}``,
-``utils/colors``, ``world/{rle,save}``, ``bench/path`` and
-``render/device_init.build_frame_params``.  Each case below
+``utils/colors``, ``world/{rle,save}``, ``bench/path``,
+``render/device_init.build_frame_params``, ``assets/{mesh,obj,native}``
+(and ``csrc/voxio.cpp``), ``render/controller`` and the frontend's
+``_ansi_frame``.  Each case below
 runs one piece of a copy and of its original on the same inputs.
 """
 import dataclasses
@@ -238,6 +240,113 @@ def case_oracle_frame():
                 "rgb")
     assert_same(tcol.unpack_argb(out[0][2]), jcol.unpack_argb(out[1][2]),
                 "unpack")
+
+
+def case_mesh():
+    from cpuvox_tpu.assets import mesh as jm
+    from cpuvox_tpu_torch.assets import mesh as tm
+
+    for v in (0, 1, 2, 3, 5, 1000, 1024, 1025):
+        assert tm.next_power_of_two(v) == jm.next_power_of_two(v), v
+    rng = np.random.default_rng(2)
+    pos = rng.uniform(-3.0, 11.0, (30, 3)).astype(np.float32)
+    uvs = rng.random((30, 2)).astype(np.float32)
+    out = []
+    for m in (tm, jm):
+        mesh = m.SimpleMesh(positions=pos.copy(),
+                            colors=np.full((30, 4), 255, np.uint8),
+                            uvs=uvs.copy(),
+                            material_index=np.full(30, -1, np.int32))
+        dims = [m.rescale(mesh, 100, flips) for flips in
+                ((True, False, False), (False, True, True))]
+        tex = np.arange(5 * 7 * 4, dtype=np.uint8).reshape(5, 7, 4)
+        mat = m.Material(name="t", index=0, diffuse=tex)
+        out.append([dims, mesh.positions, mesh.vertex_count,
+                    mesh.triangle_count, mat.sample_diffuse(mesh.uvs)])
+    assert_same(out[0], out[1], "mesh")
+
+
+OBJ = """mtllib scene.mtl
+v 0 0 0 1 0 0
+v 4 0 0 0 1 0
+v 4 3 0 0 0 1
+v 0 3 2 0.5 0.25 0.125
+v 1.5 2.25 -1 0.2 0.4 0.6
+vt 0 0
+vt 1 0
+vt 1 1
+vt 0 1
+usemtl brick
+f 1/1 2/2 3/3 4/4
+f -5/-4 -3/-2 -1/-1
+usemtl nothing
+f 2 3 5
+usemtl plain
+f -1 -2 -4 -5
+"""
+MTL = """newmtl brick
+map_Kd brick.png
+newmtl plain
+"""
+
+
+def case_obj_parsers(tmp_path):
+    """The python parsers, and the native ones (each package's copy of
+    voxio.cpp built by g++), on a written .obj: quads, negative indices,
+    vertex colors, uvs, a mtllib with a PIL-written texture, swap_yz."""
+    from PIL import Image
+
+    from cpuvox_tpu.assets import native as jn, obj as jo
+    from cpuvox_tpu_torch.assets import native as tn, obj as to
+
+    (tmp_path / "scene.obj").write_text(OBJ)
+    (tmp_path / "scene.mtl").write_text(MTL)
+    rng = np.random.default_rng(4)
+    Image.fromarray(rng.integers(0, 256, (6, 5, 4)).astype(np.uint8),
+                    "RGBA").save(tmp_path / "brick.png")
+    path = str(tmp_path / "scene.obj")
+    for swap in (False, True):
+        a = to._import_obj_python(path, swap)
+        assert_same(a, jo._import_obj_python(path, swap), f"python {swap}")
+        assert a.triangle_count == 6 and a.materials[0].diffuse is not None
+        assert tn.available() == jn.available()
+        if tn.available():
+            assert_same(to.import_obj(path, swap),
+                        jo.import_obj(path, swap), f"native {swap}")
+    assert_same(to._load_mtllib(path, "scene.mtl"),
+                jo._load_mtllib(path, "scene.mtl"), "mtllib")
+
+
+def case_controller():
+    from cpuvox_tpu.render import camera as jc, controller as jctl
+    from cpuvox_tpu_torch.render import camera as tc, controller as tctl
+
+    out = []
+    for cmod, ctl in ((tc, tctl), (jc, jctl)):
+        cam = cmod.Camera(position=(3.0, 7.0, -2.0), pitch_deg=10.0,
+                          yaw_deg=30.0, screen=(64, 48))
+        look, fly = ctl.MouseLook(), ctl.FlyMovement()
+        trail = []
+        for i in range(40):
+            fly.scroll((-1) ** i * (i % 3))
+            cam = look.update(cam, 3.0 * np.sin(i), -9.0 + i % 5)
+            cam = fly.update(cam, 1 / 30, forward=(i % 3) - 1.0,
+                             strafe=0.5 if i % 2 else -1.0)
+            trail.append(dataclasses.asdict(cam))
+        out.append([trail, fly.move_speed, look._smooth_x, look._smooth_y])
+    assert_same(out[0], out[1], "controllers")
+
+
+def case_ansi_frame():
+    from cpuvox_tpu.frontend import interactive as ji
+    from cpuvox_tpu_torch.frontend import interactive as ti
+
+    rng = np.random.default_rng(6)
+    frame = (rng.integers(0, 1 << 24, (48, 64)) | 0xFF000000).astype(
+        np.uint32)
+    for cols, rows in ((20, 10), (64, 24), (7, 3)):
+        assert ti._ansi_frame(frame, cols, rows) == ji._ansi_frame(
+            frame, cols, rows)
 
 
 CASES = {k[5:]: v for k, v in sorted(globals().items())

@@ -142,6 +142,11 @@ def test_port_never_imports_jax():
         " 'cpuvox_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import cpuvox_tpu_torch.render.frame, cpuvox_tpu_torch.bench.harness\n"
+        "import cpuvox_tpu_torch.assets.pipeline, cpuvox_tpu_torch.demo\n"
+        "import cpuvox_tpu_torch.assets.convert_cli\n"
+        "import cpuvox_tpu_torch.frontend.interactive\n"
+        "import cpuvox_tpu_torch.world.rle_device\n"
+        "import cpuvox_tpu_torch.utils.profiling, cpuvox_tpu_torch.bench.meshes\n"
         "import chip_smoke\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or"
         " k.startswith('jax.') or k.startswith('jaxlib'))\n"
