@@ -5,6 +5,10 @@ Run from the repository root, on a machine with an NVIDIA H100 (sm_90a) and
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --shard-only`` builds the kernels and the two 2048
+worlds and runs phase 12 alone: the multi-device renderer over the shards
+of card 0 and, with more than one card, over the cards.)
+
 Phases; each prints its own lines, and any mismatch or exception exits
 non-zero (no phase catches its own failure):
 
@@ -106,22 +110,43 @@ non-zero (no phase catches its own failure):
    step); (f) the same 1080p steps replayed twice from the same state: each
    stage synced (controllers, frame setup, march, phase 2, frame copy),
    then under ``torch.profiler`` (the device busy share), and
-   ``FrameProfiler`` with CUDA events around 8 more steps at each size.
+   ``FrameProfiler`` with CUDA events around 8 more steps at each size;
+12. the multi-device renderer (``parallel/``) over 4 shards of the card
+   (``["cuda:0"] * 4``), on the worlds phases 3 and 6 built: (a)
+   terrain2048 and (b) layered2048 at 1920x1080 through ``ShardedRenderer``
+   (LOD0 striped in tiles of 256 columns; the dense and the gated march),
+   three path cameras at the default LOD0 radius and at a radius of 300
+   (a window of 5 x 5 of the 8 x 8 tiles), screens == the unsharded
+   Renderer's, the window, the exchanges and their bytes; (f) on each, the
+   rasterizer on a chunk of the active window against its plain version;
+   (c) ``render_frame_sharded`` on both worlds == the unsharded frame,
+   launches a frame, frame ms sharded and unsharded in turns; (d) the
+   composed mode, one frame on each; (e) the rollout's 64 cameras at
+   256x256 camera-sharded == the unsharded batch, cams/s both ways in
+   turns.  In one more run of (a), (b), (c), (d) and (e) each, the four
+   kernels are held against their plain versions on the same inputs, at
+   the shapes the sharded path gives them (a shard's slice of the rays,
+   the gathered raybuffer, a camera block): every phase-2 call, and each
+   shard's first roll and rasterizer call at full width and on a live-ray
+   index.  With more than one card,
+   (a), (c) and (e) again over the real cards.
 
 The three flythrough Renderers are created with ``compact=True`` (the march
 on a live-ray index; the Renderer's default is the full-width march, which
 the oracle check, the split-layout frame and a variant of each small frame
 run).  Kernel launch counts are set to 0 just before each flythrough, the
 rollout's first timed run, the dynamic terrain's (``exact_lod1`` off)
-timed run and the mesh path's 1080p interactive run (two warmup steps and
-24 timed), and read just after each; launches made to compare or time a
-kernel are not counted.  The last lines are the card line, one JSON line of
+timed run, the mesh path's 1080p interactive run (two warmup steps and
+24 timed) and each sharded run of phase 12 (summed as the ``shard`` path),
+and read just after each; launches made to compare or time a kernel are
+not counted.  The last lines are the card line, one JSON line of
 kernels (``launches_by_path`` per path; the batched phase 2,
 ``reproject_screens``, has its own entry), and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -160,10 +185,11 @@ def log(msg: str) -> None:
 
 
 def card_line() -> str:
+    """``nvidia-smi``'s name and power limit, one card's to a ``; ``."""
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60, check=True)
-    return r.stdout.strip()
+    return "; ".join(r.stdout.strip().splitlines())
 
 
 # ------------------------------------------------------------- comparison
@@ -1562,6 +1588,399 @@ def check_mesh(card: str, dev: torch.device) -> dict:
     return {"convert": conv, "interactive": metrics, "launches": launches}
 
 
+# ------------------------------------------------------------- the shards
+
+# the world shard's tile side, and the LOD0 radius that makes its window a
+# strict subset of a 2048 grid's 8 x 8 tiles: 2 * ceil(302 / 256) + 1 = 5
+SHARD_TILE_COLS = 256
+SHARD_LOD0_RADIUS = 300.0
+N_SHARDS = 4  # the shards of one card
+# path cameras: outside the world looking up, inside level, inside down
+SHARD_PATH_T = (0.3, 0.5, 0.9)
+SHARD_ROLLOUT_STEPS = 4
+
+
+def shard_counts_run(tally: dict, fn):
+    """``fn()`` with the kernels' launch counts set to 0 just before it and
+    added to ``tally`` just after it."""
+    from cpuvox_tpu_torch.ops import phase1_kernel, roll_kernel
+    from cpuvox_tpu_torch.ops import reproject_kernel as rk
+
+    for m in (roll_kernel, phase1_kernel, rk):
+        m.launches = 0
+    rk.screens_launches = 0
+    out = fn()
+    for k, v in (("roll_chunk", roll_kernel.launches),
+                 ("rasterize_visits", phase1_kernel.launches),
+                 ("reproject_screen", rk.launches),
+                 ("reproject_screens", rk.screens_launches)):
+        tally[k] = tally.get(k, 0) + v
+    return out
+
+
+@contextlib.contextmanager
+def held_against_plain(stats: dict, held: dict):
+    """Within the block the four kernels' wrappers are held against their
+    plain versions on copies of the same inputs, at the shapes the caller
+    gives them (a shard's slice of the rays, the gathered raybuffer, a
+    camera block), into ``stats`` under the kernel's name: every phase-2
+    call, and of each march (a ``raymarch.phase1`` call: one a shard or
+    camera block) the first roll and rasterizer call at full width and the
+    first on a live-ray index (a plain rasterizer call takes 0.4-1.8 s
+    at 1080p).  ``held`` collects, by kernel, the calls held, the rays of
+    the state each was given (a call may work on a live-ray index of them)
+    and the marches they came from.  The wrapper's own launch is the
+    caller's; the plain version launches nothing."""
+    from cpuvox_tpu_torch.bench.capture import clone
+    from cpuvox_tpu_torch.ops import phase1_kernel, roll_kernel
+    from cpuvox_tpu_torch.ops import reproject_kernel as rk
+    from cpuvox_tpu_torch.render import raymarch
+
+    orig = {"phase1": (raymarch, raymarch.phase1),
+            "roll_chunk": (roll_kernel, roll_kernel.roll_chunk),
+            "rasterize_visits": (phase1_kernel,
+                                 phase1_kernel.rasterize_visits),
+            "reproject_screen": (rk, rk.reproject_screen),
+            "reproject_screens": (rk, rk.reproject_screens)}
+
+    def note(name, rays, march=None):
+        h = held.setdefault(name, {"calls": 0, "rays": set(),
+                                   "marches": set()})
+        h["calls"] += 1
+        h["rays"].add(int(rays))
+        if march is not None:
+            h["marches"].add(march)
+
+    marches = [0]  # phase1 calls so far
+    first: set = set()
+
+    def phase1(*a, **kw):
+        marches[0] += 1
+        return orig["phase1"][1](*a, **kw)
+
+    def is_first(name, index) -> bool:
+        key = (name, marches[0], index is None)
+        new = key not in first
+        first.add(key)
+        return new
+
+    def roll(dda, alive, *rest, **kw):
+        if not is_first("roll_chunk", kw.get("index")):
+            return orig["roll_chunk"][1](dda, alive, *rest, **kw)
+        want = roll_kernel.roll_chunk_ref(clone(dda), alive.clone(), *rest,
+                                          **kw)
+        got = orig["roll_chunk"][1](dda, alive, *rest, **kw)
+        compare("roll_chunk", [*got[0], got[1], got[2]],
+                [*want[0], want[1], want[2]], stats)
+        note("roll_chunk", dda.pos.shape[0], marches[0])
+        return got
+
+    def raster(rs, *rest, **kw):
+        if not is_first("rasterize_visits", kw.get("index")):
+            return orig["rasterize_visits"][1](rs, *rest, **kw)
+        want = phase1_kernel.rasterize_visits_ref(clone(rs), *rest, **kw)
+        got = orig["rasterize_visits"][1](rs, *rest, **kw)
+        compare("rasterize_visits", got, want, stats)
+        note("rasterize_visits", rs.raybuf.shape[0], marches[0])
+        return got
+
+    def phase2(name, ref):
+        def fn(raybuf, *rest):
+            got = orig[name][1](raybuf, *rest)
+            compare(name, [got], [ref(raybuf, *rest)], stats)
+            note(name, raybuf.shape[0])
+            return got
+        return fn
+
+    spies = {"phase1": phase1, "roll_chunk": roll,
+             "rasterize_visits": raster,
+             "reproject_screen": phase2("reproject_screen",
+                                        rk.reproject_screen_ref),
+             "reproject_screens": phase2("reproject_screens",
+                                         rk.reproject_screens_ref)}
+    for name, (mod, _fn) in orig.items():
+        setattr(mod, name, spies[name])
+    try:
+        yield held
+    finally:
+        for name, (mod, fn) in orig.items():
+            setattr(mod, name, fn)
+
+
+def held_txt(held: dict) -> str:
+    """``held_against_plain``'s calls and ray counts, kernel by kernel."""
+    return "; ".join(
+        f"{k} {v['calls']} calls on {sorted(v['rays'])} rays"
+        + (f" in {len(v['marches'])} marches" if v["marches"] else "")
+        for k, v in sorted(held.items()))
+
+
+def held_run(tag: str, fn, stats: dict):
+    """``fn()`` (one sharded run, not counted) with its kernel calls held
+    against their plain versions (``held_against_plain``); logs what was
+    held and returns ``fn``'s result."""
+    t0 = time.perf_counter()
+    with held_against_plain(stats, {}) as held:
+        out = fn()
+    if not ({"roll_chunk", "rasterize_visits"} <= held.keys()
+            and held.keys() & {"reproject_screen", "reproject_screens"}):
+        raise AssertionError(f"[shard] {tag}: a kernel of the path was not "
+                             f"held against its plain version ({held})")
+    log(f"[shard] {tag}: the kernels == their plain versions on the same "
+        f"inputs, 0 elements differ ({held_txt(held)}; "
+        f"{time.perf_counter() - t0:.1f} s with the plain calls)")
+    return out
+
+
+def compare_screens(name: str, got, want, stats: dict) -> None:
+    """Screens ((H, W) uint32 numpy or int32 tensors) bit for bit."""
+    def t(x):
+        return (torch.from_numpy(np.ascontiguousarray(x).view(np.int32))
+                if isinstance(x, np.ndarray) else x.cpu())
+
+    compare(name, [t(g) for g in got], [t(w) for w in want], stats)
+
+
+def with_lod0(renderer, r0):
+    """A Renderer over the same world tables with ``lod_distances[0]`` set
+    to ``r0`` (None: as resolved)."""
+    ld = renderer.lod_distances.copy()
+    if r0 is not None:
+        ld[0] = r0
+    return dataclasses.replace(renderer, lod_distances=ld)
+
+
+def check_world_shard(tag: str, lods, plain, devices, where: str,
+                      tally: dict, stats: dict) -> dict:
+    """``ShardedRenderer`` over ``devices`` at the default LOD0 radius and
+    at ``SHARD_LOD0_RADIUS`` (a strict-subset window): three path cameras
+    each, screens == the unsharded Renderer's, the window, the exchanges and
+    their bytes; one more frame with its kernel calls held against their
+    plain versions; then (f) the rasterizer on a capture of the active window
+    against its plain version.  Returns the sharded renderer."""
+    from cpuvox_tpu_torch.bench.capture import capture
+    from cpuvox_tpu_torch.parallel import ShardedRenderer
+
+    t0 = time.perf_counter()
+    sr = ShardedRenderer(lods, devices, plain.config,
+                         tile_cols=SHARD_TILE_COLS)
+    sr.inner.compact = plain.compact  # march as the unsharded Renderer
+    sw = sr.sw
+    t_build = time.perf_counter() - t0
+    cams = [path_camera(plain, t) for t in SHARD_PATH_T]
+    for label, r0 in (("default radius", None),
+                      ("strict subset", SHARD_LOD0_RADIUS)):
+        ref = with_lod0(plain, r0)
+        sr.inner.lod_distances = ref.lod_distances.copy()
+        sr.inner.far_clip = ref.far_clip
+        n0, b0 = sr._n_exchanges, sr._exchange_bytes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = shard_counts_run(tally, lambda: [sr.render(c) for c in cams])
+        t_frames = time.perf_counter() - t0
+        compare_screens(f"[shard] {tag} {label}", got,
+                        [ref.render(c) for c in cams], stats)
+        w = sr._window_key[2]
+        strict = w < max(sw.nt_x, sw.nt_z)
+        if r0 is not None and not strict:
+            raise AssertionError(f"[shard] {tag}: the window {w} is not a "
+                                 f"strict subset of {sw.nt_x}x{sw.nt_z} tiles")
+        log(f"[shard] ({'a' if tag == 'terrain2048' else 'b'}) {tag} "
+            f"{MAIN_WH[0]}x{MAIN_WH[1]} over {where}, tiles of "
+            f"{SHARD_TILE_COLS} columns ({sw.nt_x}x{sw.nt_z} tiles, built in "
+            f"{t_build:.1f} s), {label} (lod_distances[0] "
+            f"{ref.lod_distances[0]:.0f}): window W {w} "
+            f"({'a strict subset' if strict else 'covers the grid'}; last "
+            f"corner {sr._window_key[:2]}), {len(cams)} path cameras == the "
+            f"unsharded Renderer, 0 pixels differ; "
+            f"{sr._n_exchanges - n0} exchanges, "
+            f"{sr._exchange_bytes - b0} bytes gathered, "
+            f"{t_frames * 1e3:.1f} ms for the {len(cams)} frames with their "
+            f"exchanges ({card_line()})")
+    held_run(f"{tag} strict subset, {cams[-1].position}",
+             lambda: sr.render(cams[-1]), stats)
+    # (f) the rasterizer on the first chunk of a camera inside the world,
+    # its window active: the cells it reads at LOD0 go through the window
+    for k, cam in ((k, c) for c in cams[::-1] for k in (0, 1)):
+        sr._activate(*sr._window(sr.inner.setup_camera(cam)[0]))
+        cap = capture(sr.inner, cam, k, compact=False)
+        if cap.gated:
+            lod0, valid = cap.src.rows[..., 3] == 0, cap.src.proc
+        else:
+            lod0, valid = cap.src[:, 4] == 0, cap.src[:, 5] != 0
+        n_lod0 = int((lod0 & valid).sum())
+        if n_lod0:
+            break
+    else:
+        raise AssertionError(f"[shard] {tag}: no capture holds a LOD0 cell")
+    _want, written = raster_both(cap, stats)
+    log(f"[shard] (f) {tag}: rasterize_visits with the window "
+        f"{sr.inner._wa.win} (the "
+        f"{'gated group' if cap.gated else 'dense chunk'} after {k} "
+        f"iterations, {n_lod0} valid LOD0 cells, {written} texels written) "
+        f"== plain, and the previous design on the same cells == plain, 0 "
+        f"elements differ")
+    return sr
+
+
+def time_turns(fns: dict, reps_each: int) -> dict:
+    """Each function's host times in ms, synced, in turns a, b, b, a."""
+    names = list(fns)
+    order = names + names[::-1]
+    ms = {n: [] for n in names}
+    def sync():  # every card a sharded run may have used
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    for _ in range(reps_each):
+        for n in order:
+            sync()
+            t0 = time.perf_counter()
+            fns[n]()
+            sync()
+            ms[n].append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def check_ray_sharded(tag: str, plain, rmesh, where: str, tally: dict,
+                      stats: dict) -> None:
+    """(c) ``render_frame_sharded`` over ``rmesh`` on three path cameras ==
+    the unsharded frame; launches a frame of each kernel; one more frame
+    with its kernel calls (each shard's roll and rasterizer, phase 2 on the
+    gathered raybuffer) held against their plain versions; frame ms sharded
+    and unsharded, in turns."""
+    from cpuvox_tpu_torch.parallel.mesh import render_frame_sharded
+
+    cams = [path_camera(plain, t) for t in SHARD_PATH_T]
+    own: dict = {}
+    got = shard_counts_run(own, lambda: [
+        render_frame_sharded(plain, c, rmesh) for c in cams])
+    for k, v in own.items():
+        tally[k] = tally.get(k, 0) + v
+    compare_screens(f"[shard] {tag} ray-sharded", got,
+                    [plain.render(c) for c in cams], stats)
+    held_run(f"(c) {tag} ray-sharded over {where}",
+             lambda: render_frame_sharded(plain, cams[1], rmesh), stats)
+    per_frame = {k: v / len(cams) for k, v in own.items()}
+    ms = {"unsharded": [], "sharded": []}
+    for c in cams:
+        m = time_turns({"unsharded": lambda: plain.render(c),
+                        "sharded": lambda: render_frame_sharded(
+                            plain, c, rmesh)}, 1)
+        for k in ms:
+            ms[k] += m[k]
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    log(f"[shard] (c) {tag} {MAIN_WH[0]}x{MAIN_WH[1]}, one camera's rays "
+        f"over {where} ({rmesh.n_ray_shards} shards): {len(cams)} path "
+        f"cameras == the unsharded frame, 0 pixels differ; a frame "
+        f"launches roll {per_frame['roll_chunk']:.1f}, rasterize "
+        f"{per_frame['rasterize_visits']:.1f}, phase 2 "
+        f"{per_frame['reproject_screen']:.1f}; frame ms in turns (median of "
+        f"{len(ms['sharded'])}): sharded {med['sharded']:.3f}, unsharded "
+        f"{med['unsharded']:.3f} (all sharded {np.round(ms['sharded'], 3).tolist()}, "
+        f"unsharded {np.round(ms['unsharded'], 3).tolist()}) ({card_line()})")
+
+
+def check_camera_sharded(rmesh, where: str, tally: dict, stats: dict) -> None:
+    """(e) the rollout's 64 cameras at 256x256 over ``rmesh``: the batch ==
+    the unsharded batch, then once more with its kernel calls (each camera
+    block's march and phase 2) held against their plain versions, and
+    cams/s both ways in turns."""
+    from cpuvox_tpu_torch.bench import harness
+    from cpuvox_tpu_torch.parallel.batch import render_camera_batch
+
+    r = harness.rollout_renderer(ROLLOUT_WH)
+    dims = r.device_world.dims
+    cams = harness.rollout_cameras(1, N_ROLLOUT_CAMS, ROLLOUT_WH, dims)
+    got = shard_counts_run(tally, lambda: render_camera_batch(r, cams,
+                                                              rmesh=rmesh))
+    compare_screens("[shard] rollout camera-sharded", [got],
+                    [render_camera_batch(r, cams)], stats)
+    held_run(f"(e) rollout camera-sharded over {where}",
+             lambda: render_camera_batch(r, cams, rmesh=rmesh), stats)
+    steps = [harness.rollout_cameras(2 + s, N_ROLLOUT_CAMS, ROLLOUT_WH, dims)
+             for s in range(SHARD_ROLLOUT_STEPS)]
+
+    def run(mesh):
+        for st in steps:
+            render_camera_batch(r, st, rmesh=mesh)
+
+    ms = time_turns({"unsharded": lambda: run(None),
+                     "sharded": lambda: run(rmesh)}, 1)
+    n = N_ROLLOUT_CAMS * SHARD_ROLLOUT_STEPS
+    cps = {k: [n / (t / 1e3) for t in v] for k, v in ms.items()}
+    log(f"[shard] (e) rollout{N_ROLLOUT_CAMS} {ROLLOUT_WH[0]}x"
+        f"{ROLLOUT_WH[1]} over {where}: the camera-sharded batch == the "
+        f"unsharded batch, 0 pixels differ; cams/s in turns ({n} cameras "
+        f"a run): sharded {np.round(cps['sharded'], 2).tolist()}, unsharded "
+        f"{np.round(cps['unsharded'], 2).tolist()} ({card_line()})")
+
+
+def check_shard(card: str, stats: dict, terrain, terrain_lods, layered,
+                layered_lods) -> dict:
+    """The multi-device renderer (``parallel/``) on the card, its shards
+    ``N_SHARDS`` repeats of it: (a) terrain2048 and (b) layered2048 world
+    sharded at the default LOD0 radius and with a strict-subset window, (f)
+    the rasterizer's window on a capture of each, (c) the ray-sharded frame
+    on both, (d) the composed mode, one frame each, (e) the camera-sharded
+    rollout.  Every screen == the unsharded Renderer's, and in one more run
+    of each the kernel calls == their plain versions.  The launch counts
+    of the sharded runs (not of their comparisons) are the ``shard``
+    path's, returned by kernel.  With more than one card, (a), (c) and (e)
+    again over the real cards."""
+    from cpuvox_tpu_torch.parallel import RenderMesh
+
+    tally: dict = {}
+    dev = terrain.device
+    one = [dev] * N_SHARDS
+    where = f"{N_SHARDS} shards of {dev}"
+    worlds = (("terrain2048", terrain_lods, terrain),
+              ("layered2048", layered_lods, layered))
+    sharded = {tag: check_world_shard(tag, lods, plain, one, where, tally,
+                                      stats)
+               for tag, lods, plain in worlds}
+    rmesh = RenderMesh.create(one)
+    for tag, _lods, plain in worlds:
+        check_ray_sharded(tag, plain, rmesh, where, tally, stats)
+    # (d) composed: the strict-subset window, one camera's rays over rmesh
+    for tag, _lods, plain in worlds:
+        sr = sharded.pop(tag)
+        sr.ray_mesh = rmesh
+        ref = with_lod0(plain, SHARD_LOD0_RADIUS)
+        sr.inner.lod_distances = ref.lod_distances.copy()
+        cam = path_camera(plain, SHARD_PATH_T[1])
+        got = shard_counts_run(tally, lambda: sr.render(cam))
+        compare_screens(f"[shard] {tag} composed", [got], [ref.render(cam)],
+                        stats)
+        held_run(f"(d) {tag} composed", lambda: sr.render(cam), stats)
+        log(f"[shard] (d) {tag} composed: LOD0 over {where} (window "
+            f"{sr._window_key}) and the camera's rays over the same "
+            f"{rmesh.n_ray_shards}: one frame == the unsharded Renderer, 0 "
+            "pixels differ")
+        del sr
+    check_camera_sharded(rmesh, where, tally, stats)
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        cards = [torch.device("cuda", i) for i in range(n_cards)]
+        where = f"{n_cards} cards"
+        real = RenderMesh.create(cards)
+        check_world_shard("terrain2048", terrain_lods, terrain, cards, where,
+                          {}, stats)
+        for tag, _lods, plain in worlds:
+            check_ray_sharded(tag, plain, real, where, {}, stats)
+        check_camera_sharded(real, where, {}, stats)
+    else:
+        log(f"[shard] one card ({card}): (a), (c) and (e) did not run "
+            "over several cards")
+    if min(tally.get(k, 0) for k in ("roll_chunk", "rasterize_visits",
+                                      "reproject_screen",
+                                      "reproject_screens")) <= 0:
+        raise AssertionError(f"[shard] launches {tally}: a kernel of the "
+                             "path did not run")
+    log(f"[shard] launches of the sharded runs: {tally}")
+    return tally
+
+
 def time_ms(fn, reps: int, setup=lambda: None) -> float:
     """Mean device time of ``fn`` in ms, by CUDA events around each call;
     ``setup`` (untimed) prepares each call's inputs."""
@@ -1887,10 +2306,43 @@ PREVIOUS_TXT = {
 }
 
 
+def shard_only(card: str, dev: torch.device) -> int:
+    """Phase 12 alone, on the worlds it needs: the kernels built, then
+    terrain2048 and layered2048 at 1920x1080 as ``main`` builds them."""
+    from cpuvox_tpu_torch.bench.harness import layered2048, terrain2048
+    from cpuvox_tpu_torch.config import RenderConfig
+    from cpuvox_tpu_torch.ops import _build
+    from cpuvox_tpu_torch.render.frame import Renderer
+
+    t_start = time.perf_counter()
+    lib = _build.build()
+    _build.library()
+    log(f"[build] {len(_build.sources())} sources -> {os.path.relpath(lib)} "
+        f"in {time.perf_counter() - t_start:.1f} s")
+    cfg = RenderConfig(width=MAIN_WH[0], height=MAIN_WH[1])
+    worlds = []
+    for build in (terrain2048, layered2048):
+        lods = build(log=log)
+        r = Renderer.create(lods, cfg, device=dev, compact=True)
+        r.render(path_camera(r, 0.0))  # resolves the LOD distances
+        worlds += [r, lods]
+    stats: dict = {}
+    tally = check_shard(card, stats, *worlds)
+    held = {k: v for k, v in stats.items() if k in tally}
+    log(f"[shard] {json.dumps(held)}")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s in all ({card})")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this check runs only on the card", file=sys.stderr)
+        return 2
+    shard_alone = sys.argv[1:] == ["--shard-only"]
+    if sys.argv[1:] and not shard_alone:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (the only one "
+              "is --shard-only)", file=sys.stderr)
         return 2
     from cpuvox_tpu_torch.bench import roll_variants
     from cpuvox_tpu_torch.bench.harness import layered2048, terrain2048
@@ -1905,6 +2357,8 @@ def main() -> int:
     log(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda} "
         f"| python {sys.version.split()[0]}")
     check_card_arithmetic(dev)
+    if shard_alone:
+        return shard_only(card, dev)
 
     t0 = time.perf_counter()
     # the roll's previous design, to be timed beside it, builds meanwhile
@@ -1967,7 +2421,6 @@ def main() -> int:
         terrain_lods, dataclasses.replace(main_cfg, argb_records=True,
                                           host_init=False), device=dev,
         compact=True)
-    del terrain_lods
     adw = argb.device_world
     log(f"[argb] device world up in {time.perf_counter() - t0:.1f} s: "
         f"max_col_colors {adw.max_col_colors}, records "
@@ -1996,9 +2449,10 @@ def main() -> int:
     check_split_layout(dev, stats)
 
     # ---- layered2048: the occupancy-gated march
-    lods = layered2048(log=log)
+    layered_lods = layered2048(log=log)
     t0 = time.perf_counter()
-    layered = Renderer.create(lods, main_cfg, device=dev, compact=True)
+    layered = Renderer.create(layered_lods, main_cfg, device=dev,
+                              compact=True)
     dw = layered.device_world
     log(f"[layered] (a) device world up in {time.perf_counter() - t0:.1f} s: "
         f"{dw.lod0_voxels} LOD0 voxels, max_runs {dw.max_runs}, empty_frac "
@@ -2008,7 +2462,6 @@ def main() -> int:
         f"{layered.march_params}, group {layered.gated_group_cells}")
     if not layered.occupancy_on:
         raise AssertionError("layered2048's occupancy gate resolved off")
-    del lods
     check_device_init(layered, "layered", card)
     g_caps = check_gated_kernels(layered, stats)
     check_small_frame(layered, "layered", [
@@ -2032,7 +2485,7 @@ def main() -> int:
         "roll_previous": prev_roll["previous design"],
         "dims": dw.dims, "plain_reps": 1})
     log(f"[layered] done at {time.perf_counter() - t_start:.1f} s")
-    del layered, g_caps, busiest, f, p2args
+    del g_caps, busiest, f, p2args
     torch.cuda.empty_cache()
 
     rollout = check_rollout(card, stats)
@@ -2041,6 +2494,9 @@ def main() -> int:
     log(f"[dynamic] done at {time.perf_counter() - t_start:.1f} s")
     mesh = check_mesh(card, dev)
     log(f"[mesh] done at {time.perf_counter() - t_start:.1f} s")
+    shard = check_shard(card, stats, terrain, terrain_lods, layered,
+                        layered_lods)
+    log(f"[shard] done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for kname, src, replaces in KERNELS:
@@ -2078,7 +2534,8 @@ def main() -> int:
                 "layered2048": l_launches[kname],
                 "rollout64_256x256": rollout["launches"][kname],
                 "dynamic512_1280x720": dynamic["launches"][kname],
-                "mesh2048_1920x1080": mesh["launches"][kname]},
+                "mesh2048_1920x1080": mesh["launches"][kname],
+                "shard": shard[kname]},
             "terrain2048": tt, "terrain2048_argb": at})
     # phase 2 of a camera batch: the batched variant of reproject_screen,
     # timed at the rollout's shapes (a direction group of 32 cameras)
@@ -2096,7 +2553,8 @@ def main() -> int:
         "per_camera_launches": p2["per camera"],
         "launches_by_path": {
             "rollout64_256x256": rollout["launches"]["reproject_screens"],
-            "mesh2048_1920x1080": mesh["launches"]["reproject_screens"]}})
+            "mesh2048_1920x1080": mesh["launches"]["reproject_screens"],
+            "shard": shard["reproject_screens"]}})
     log(f"[summary] rollout cams/s (compaction off, on): "
         f"{rollout['cams_per_sec'][False]}, {rollout['cams_per_sec'][True]}, "
         f"busy share {rollout['busy_share']:.4f}; dynamic fps exact_lod1 "

@@ -9,6 +9,7 @@ Usage:
   python -m cpuvox_tpu_torch.demo --obj model.obj --max-dim 256 --save model.world
   python -m cpuvox_tpu_torch.demo --scene terrain --flythrough --frames 24
   python -m cpuvox_tpu_torch.demo --obj model.obj --device cpu      # no card
+  python -m cpuvox_tpu_torch.demo --scene terrain --world-shard --tile-cols 128
 
 Render modes mirror the reference's keys 1/2/3 (screen buffer / raw raybuffer
 views, UnityManager.cs:126-146); frames are written as PPM (plus PNG when PIL
@@ -50,9 +51,12 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device of the conversion and the renderer")
     ap.add_argument("--world-shard", action="store_true",
-                    help="stripe LOD0 over the devices (not ported yet)")
-    ap.add_argument("--tile-cols", type=int, default=None,
-                    help="world-shard tile side in columns (not ported yet)")
+                    help="stripe LOD0 over every CUDA device (over --device "
+                         "when it names one) and render through the "
+                         "camera-local window exchange "
+                         "(parallel/world_shard.py)")
+    ap.add_argument("--tile-cols", type=int, default=256,
+                    help="world-shard tile side in columns (power of two)")
     ap.add_argument("--lod-error", type=float, default=1.0)
     ap.add_argument("--out", default="demo_frames")
     ap.add_argument("--profile", action="store_true")
@@ -88,16 +92,20 @@ def build_world(args):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.world_shard or args.tile_cols is not None:
+    if args.world_shard and args.interactive:
+        # the JAX demo fails here too: its InteractiveSession reads
+        # renderer.device_world, which a ShardedRenderer does not have
         raise NotImplementedError(
-            "--world-shard / --tile-cols (parallel/world_shard.py) are not "
-            "ported yet")
+            "--world-shard with --interactive is not ported: the JAX "
+            "package's InteractiveSession cannot drive its ShardedRenderer "
+            "either")
     os.makedirs(args.out, exist_ok=True)
 
     import numpy as np
 
     from cpuvox_tpu_torch.bench.path import BENCH_CLIP_LENGTH, benchmark_camera
     from cpuvox_tpu_torch.config import RenderConfig
+    from cpuvox_tpu_torch.parallel.mesh import RenderMesh
     from cpuvox_tpu_torch.render import camera as cm
     from cpuvox_tpu_torch.render.frame import Renderer
     from cpuvox_tpu_torch.utils.colors import to_rgb_image, write_ppm
@@ -112,7 +120,16 @@ def main(argv=None):
     cfg = RenderConfig(width=w, height=h, render_scale=args.res_scale,
                        lod_error=args.lod_error, backend=args.backend)
     with prof.scope("create-renderer"):
-        renderer = Renderer.create(lods, cfg, device=args.device)
+        if args.world_shard:
+            from cpuvox_tpu_torch.parallel.world_shard import ShardedRenderer
+
+            # every CUDA device for a bare "cuda", else the one named
+            devices = (None if args.device == "cuda" else [args.device])
+            mesh = RenderMesh.create(devices)
+            renderer = ShardedRenderer(lods, mesh, cfg,
+                                       tile_cols=args.tile_cols)
+        else:
+            renderer = Renderer.create(lods, cfg, device=args.device)
 
     if args.interactive:
         from cpuvox_tpu_torch.frontend.interactive import (InteractiveSession,

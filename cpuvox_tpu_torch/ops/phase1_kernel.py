@@ -17,12 +17,16 @@ raybuffer and in all 8 state fields.
 them, the roll's visits (C, 13, Rk) int32 on the dense march or a gated
 group's ``PackedCells``, and reads and unpacks each cell's column record
 from the world tables itself (inline int32 runs, 16-bit packed runs, the
-split layout), so the march runs no torch column fetch.  The lanes split
-the texel work, work out a cell's runs side by side in a world of more than
-8 runs a column, and keep a written-texel bitmask of the ray's row in
-shared memory for the frontier scans.  Its
-plain version, ``rasterize_visits_ref``, is the fetch
-(``raymarch.fetch_cells``) followed by ``raymarch.rasterize_cells``.
+split layout), so the march runs no torch column fetch.  On the dense march
+it works out each cell's column index from the visit, through the tile
+window of a world-sharded active world (``WorldArrays.win``) where there is
+one; a gated group's rows carry the index ``raymarch.gated_group`` made.
+The lanes split the texel work, work out a cell's runs side by side in a
+world of more than 8 runs a column, and keep a written-texel bitmask of the
+ray's row in shared memory for the frontier scans.  Its plain version,
+``rasterize_visits_ref``, is the fetch (``raymarch.fetch_cells``, whose
+``chunk_cells`` applies the same window) followed by
+``raymarch.rasterize_cells``.
 
 ``rasterize_chunk`` is the previous design, off every path and timed
 against the group kernel by ``chip_smoke.py``: one thread a ray on cells
@@ -71,11 +75,11 @@ _F = ctypes.c_float
 # 9 state + 9 cell-field + 3 static pointers, then the scalars
 _CHUNK_ARGTYPES = ([_P] * 21 + [_F, _F, _F, _I, _F, _F, _I, _I, _I, _I, _P,
                                 _I, _I, _P])
-# 9 state + 3 static pointers; visits, packed, proc, C; the world; scalars;
-# the per-ray camera height (or nulls)
+# 9 state + 3 static pointers; visits, packed, proc, C; the world and its
+# tile window; scalars; the per-ray camera height (or nulls)
 _VISITS_ARGTYPES = ([_P] * 12 + [_P, _P, _P, _I, _P, _I, _I, _P, _I, _I, _I,
-                                 _P, _P, _F, _F, _F, _I, _F, _F, _I, _P, _P,
-                                 _P, _I, _I, _P])
+                                 _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _F,
+                                 _F, _I, _P, _P, _P, _I, _I, _P])
 
 
 def rasterize_visits_ref(rs: rm.RasterState, wa: rm.WorldArrays, cells,
@@ -184,6 +188,7 @@ def rasterize_visits(rs: rm.RasterState, wa: rm.WorldArrays, cells,
               maxr, rwords, mcc,
               g(wa.col_base, torch.int32, (8,), "col_base"),
               g(wa.grid_z, torch.int32, (8,), "grid_z"),
+              *(wa.win or (0, 0, 0, 0)),
               *_scalars(consts, iteration_direction), *_cam_y_ptrs(consts, R),
               None if index is None else g(index, torch.int32, (Rk,), "index"),
               Rk, P, _build.stream_ptr(rs.raybuf))

@@ -232,26 +232,33 @@ class Renderer:
             iteration_direction=(
                 -1 if cam_data.inverse_element_iteration_direction else 1))
 
-    def init_rays_device(self, f: FrameSetup):
+    def init_rays_device(self, f: FrameSetup, R: int | None = None,
+                         device=None):
         """A frame's initial rays built on the device (``host_init=False``):
-        (RayStatic, DDAState, alive0) of ``ray_capacity`` rays."""
-        R = self.ray_capacity
+        (RayStatic, DDAState, alive0) of ``R`` rays (``ray_capacity`` for
+        None) on ``device`` (the Renderer's for None)."""
+        R = self.ray_capacity if R is None else R
         if sum(s.ray_count for s in f.segs) > R:
             raise ValueError(f"the frame's rays exceed capacity {R}")
         return device_init.init_rays_device(
             device_init.build_frame_params(f.cam_data, f.segs, f.ctxs),
-            self.device_world.dims, R, self.device)
+            self.device_world.dims, R,
+            self.device if device is None else device)
 
-    def frame_setup(self, cam: cm.Camera) -> FrameSetup:
+    def frame_setup(self, cam: cm.Camera, R: int | None = None,
+                    device=None) -> FrameSetup:
         """The host side of a frame: camera snapshot, segments, reprojection
-        tables and the initial rays on the device."""
+        tables and the initial rays, ``R`` of them (``ray_capacity`` for
+        None) on ``device`` (the Renderer's for None), built on the host or
+        on the device as ``config.host_init`` says."""
         f = self.frame_geometry(cam)
         if self.config.host_init:
             static, dda, alive0, _meta = ray_init.init_rays(
                 f.cam_data, f.segs, f.ctxs, self.device_world.dims,
-                fixed_size=self.ray_capacity, device=self.device)
+                fixed_size=self.ray_capacity if R is None else R,
+                device=self.device if device is None else device)
         else:
-            static, dda, alive0 = self.init_rays_device(f)
+            static, dda, alive0 = self.init_rays_device(f, R=R, device=device)
         return f._replace(static=static, dda=dda, alive0=alive0)
 
     def march(self, f: FrameSetup, compact: bool | None = None) -> torch.Tensor:
@@ -263,24 +270,35 @@ class Renderer:
                                f.cam_data.position[1], f.iteration_direction,
                                compact)
 
-    def march_rays(self, static, dda, alive0, cam_data, cam_y,
-                   iteration_direction: int, compact: bool | None = None):
-        """``march`` on given rays: one camera's, or a batch of cameras'
-        marched together with ``cam_y`` a ray's camera height (R,) and the
-        LOD distances and far clip of ``cam_data`` (``parallel/batch.py``)."""
-        if compact is None:
-            compact = self.compact
-        dims = self.device_world.dims
+    def march_kwargs(self, compact: bool | None = None) -> dict:
+        """The keywords of ``raymarch.phase1`` that the Renderer resolves:
+        the chunk and its budget, the dims, the raybuffer width, the solid
+        bounds, kernels or plain versions, the gated group (0: the dense
+        march) and compaction (``compact`` None: as the Renderer was
+        created)."""
         chunk, max_chunks = self.march_params
         smin, smax = self.solid_bounds
-        return raymarch.phase1(
-            self._wa, static, dda, alive0, cam_data.lod_distances,
-            cam_data.far_clip, dims[1], cam_y,
-            iteration_direction=iteration_direction, chunk=chunk,
-            max_chunks=max_chunks, dims=dims, pixel_len=max(self.render_wh),
-            solid_min_y=smin, solid_max_y=smax, kernels=self.kernels,
+        return dict(
+            chunk=chunk, max_chunks=max_chunks, dims=self.device_world.dims,
+            pixel_len=max(self.render_wh), solid_min_y=smin,
+            solid_max_y=smax, kernels=self.kernels,
             gated_cells=self.gated_group_cells if self.occupancy_on else 0,
-            compact=compact)
+            compact=self.compact if compact is None else compact)
+
+    def march_rays(self, static, dda, alive0, cam_data, cam_y,
+                   iteration_direction: int, compact: bool | None = None,
+                   wa: raymarch.WorldArrays | None = None):
+        """``march`` on given rays: one camera's, or a batch of cameras'
+        marched together with ``cam_y`` a ray's camera height (R,) and the
+        LOD distances and far clip of ``cam_data`` (``parallel/batch.py``),
+        against the Renderer's world or ``wa``, a replica of it on the rays'
+        device (``parallel/mesh.py``)."""
+        return raymarch.phase1(
+            self._wa if wa is None else wa, static, dda, alive0,
+            cam_data.lod_distances, cam_data.far_clip,
+            self.device_world.dims[1], cam_y,
+            iteration_direction=iteration_direction,
+            **self.march_kwargs(compact))
 
     def render_device(self, cam: cm.Camera):
         """Render one frame on the device.  Returns (screen (H, W) int32 ARGB

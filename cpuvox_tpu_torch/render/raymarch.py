@@ -112,6 +112,10 @@ class WorldArrays(NamedTuple):
     col_rec: torch.Tensor | None = None
     runs: torch.Tensor | None = None
     runs_rev: torch.Tensor | None = None
+    # a world-sharded active world's tile window (``parallel/world_shard.py``)
+    # as four host ints (tx0, tz0, log2 of the tile side, W), else None: LOD0
+    # columns and occupancy rows remap through it (``_cell_index``)
+    win: tuple[int, int, int, int] | None = None
 
 
 class CellFields(NamedTuple):
@@ -186,16 +190,45 @@ def world_arrays(dw, device) -> WorldArrays:
         col_rec=put(dw.col_rec), runs=put(dw.runs), runs_rev=put(dw.runs_rev))
 
 
-def _cell_index(wa: WorldArrays, lodc, xc, zc):
-    """Column index of visited cells: col_base[lod] + xc * grid_z[lod] + zc
-    (``raymarch.py:100`` without the world-shard window)."""
-    return wa.col_base[lodc] + xc * wa.grid_z[lodc] + zc
+def _window_slot(win, xc, zc):
+    """(slot, tile mask) of LOD0 cells in the window ``(tx0, tz0, tl, W)``:
+    the window-relative tile, row-major, and ``W * W`` (the all-empty
+    sentinel tile) for a cell off the window."""
+    tx0, tz0, tl, w = win
+    txr = (xc >> tl) - tx0
+    tzr = (zc >> tl) - tz0
+    inw = (txr >= 0) & (txr < w) & (tzr >= 0) & (tzr < w)
+    return torch.where(inw, txr * w + tzr, w * w), (1 << tl) - 1
 
 
-def _occ_tile_index(wa: WorldArrays, lodc, xc, zc):
+def _cell_index(wa: WorldArrays, lodc, v_lod, xc, zc):
+    """Column index of visited cells (``raymarch.py:100-122``):
+    col_base[lod] + xc * grid_z[lod] + zc at the clamped ``lodc``.  In a
+    world-sharded active world (``wa.win``) a cell whose raw ``v_lod`` is 0
+    maps to its window slot's block, row-major within the tile, every cell
+    computed whether valid or not."""
+    ci = wa.col_base[lodc] + xc * wa.grid_z[lodc] + zc
+    if wa.win is None:
+        return ci
+    slot, tmask = _window_slot(wa.win, xc, zc)
+    tl = wa.win[2]
+    ci0 = (slot << (2 * tl)) + ((xc & tmask) << tl) + (zc & tmask)
+    return torch.where(v_lod == 0, ci0, ci)
+
+
+def _occ_tile_index(wa: WorldArrays, lodc, v_lod, xc, zc):
     """Occupancy-tile row of visited cells, 16x8 column tiles
-    (``raymarch.py:125`` without the world-shard window)."""
-    return wa.tile_base[lodc] + (xc >> 4) * wa.tile_gz[lodc] + (zc >> 3)
+    (``raymarch.py:125-146``).  In a world-sharded active world a raw LOD0
+    cell maps to its window slot's block of T^2/128 rows (the sentinel
+    slot's rows are all zero: an empty tile)."""
+    ti = wa.tile_base[lodc] + (xc >> 4) * wa.tile_gz[lodc] + (zc >> 3)
+    if wa.win is None:
+        return ti
+    slot, tmask = _window_slot(wa.win, xc, zc)
+    tl = wa.win[2]
+    ti0 = (slot * (1 << (2 * tl - 7)) + ((xc & tmask) >> 4) * (1 << (tl - 3))
+           + ((zc & tmask) >> 3))
+    return torch.where(v_lod == 0, ti0, ti)
 
 
 def _fetch_columns(wa: WorldArrays, ci, v_valid, iteration_direction: int):
@@ -785,7 +818,8 @@ def chunk_cells(wa: WorldArrays, visits, iteration_direction: int) -> CellFields
     v_lod = visits[:, 4]
     v_valid = visits[:, 5] != 0
     lodc = v_lod.clamp(0, 7)
-    ci = _cell_index(wa, lodc, visits[:, 0] >> v_lod, visits[:, 1] >> v_lod)
+    ci = _cell_index(wa, lodc, v_lod, visits[:, 0] >> v_lod,
+                     visits[:, 1] >> v_lod)
     ci = torch.where(v_valid, ci, 0)
     n_runs, color_off, cmin, cmax, runs, colors = _fetch_columns(
         wa, ci, v_valid, iteration_direction)
@@ -953,7 +987,7 @@ def gated_group(wa: WorldArrays, visits, rs: RasterState, consts,
     # ---- stage A: one tile row per distinct tile a ray crosses this chunk,
     # packed to a budget of TS slots; steps past the budget count as "fetch"
     TS = C // 8 + 4
-    ti = _occ_tile_index(wa, lodc, xc, zc)
+    ti = _occ_tile_index(wa, lodc, v_lod, xc, zc)
     new = torch.ones_like(v_valid)
     new[1:] = ti[1:] != ti[:-1]
     slot, dest_a = _pack_rank(new, TS)
@@ -1015,7 +1049,7 @@ def gated_group(wa: WorldArrays, visits, rs: RasterState, consts,
     # in ``proc``, which the rasterizer treats as no-ops.  The column records
     # are read by the rasterize op (``fetch_cells`` in its plain version)
     rank, dest_b = _pack_rank(gate, GK)
-    ci = _cell_index(wa, lodc, xc, zc)
+    ci = _cell_index(wa, lodc, v_lod, xc, zc)
     packed = _scatter_rows(dest_b, GK, torch.stack(
         [ci, visits[:, 2], visits[:, 3], v_lod], -1))  # (GK, R, 4)
     count = rank[-1] + 1

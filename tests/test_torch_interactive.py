@@ -168,8 +168,9 @@ def test_demo_converts_and_renders_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv,error", [
-    (["--world-shard"], NotImplementedError),
-    (["--tile-cols", "128"], NotImplementedError),
+    (["--world-shard", "--interactive"], NotImplementedError),
+    (["--world-shard", "--tile-cols", "128", "--interactive"],
+     NotImplementedError),
     (["--scene", "mill"], FileNotFoundError)])
 def test_demo_refuses(argv, error, tmp_path):
     from cpuvox_tpu_torch import demo
