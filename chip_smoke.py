@@ -51,7 +51,8 @@ non-zero (no phase catches its own failure):
    rasterizers at that MAXR against their plain version, one frame against
    the plain path and its phase 2 through the fused kernel;
 6. layered2048, the occupancy-gated march (``bench.py``'s deep, mostly
-   empty headline scene): (a) the device world, whose gate must resolve on,
+   empty headline scene; its world built and cached in a child process
+   while phases 3-5 run): (a) the device world, whose gate must resolve on,
    and device against host init at its dims; (b) the roll at chunk 128 and
    both rasterizers on a packed group of 16 gated cells at MAXR 29, mid-march,
    with the live-ray index and at full width, against their plain versions,
@@ -104,7 +105,7 @@ non-zero (no phase catches its own failure):
    max_runs and empty_frac; (d) a solid white 256^3 block at
    ``lod_levels`` 9, every LOD all white (LOD 8's channel sums pass 2^31);
    (e) ``InteractiveSession`` over the 2048 world (gate on) at 320x180 and
-   1920x1080 with ``bench.py:302-309``'s inputs: the first 4 steps and the
+   1920x1080 with ``bench.py:302-309``'s inputs: the first 2 steps and the
    first step through the kernels == a plain session's, render modes 2
    and 3 == plain, 0 magenta, then the timed steps (step p50, launches a
    step); (f) the same 1080p steps replayed twice from the same state: each
@@ -129,7 +130,14 @@ non-zero (no phase catches its own failure):
    the gathered raybuffer, a camera block): every phase-2 call, and each
    shard's first roll and rasterizer call at full width and on a live-ray
    index.  With more than one card,
-   (a), (c) and (e) again over the real cards.
+   (a), (c) and (e) again over the real cards;
+13. the benchmark entry, ``python -m cpuvox_tpu_torch.bench``, a process
+   a mode (``BENCH_RUNS``): terrain2048 at 1920x1080 over 8 frames and
+   layered2048 at 320x180, each through its verify gate (one path camera
+   through the kernels and the plain versions, screens and raybuffers
+   equal), then rollout64, dynamic512 and convert_town2048; each must exit
+   0 and print only JSON lines, ``bench.py``'s metric names, no ``verify``
+   key, 0 magenta pixels and the card's line; each record is printed.
 
 The three flythrough Renderers are created with ``compact=True`` (the march
 on a live-ray index; the Renderer's default is the full-width march, which
@@ -146,6 +154,7 @@ kernels (``launches_by_path`` per path; the batched phase 2,
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -1219,7 +1228,9 @@ MESH_CHECK_DIM = 512
 MESH_LOD_LEVELS = 6
 # the white block's side and its LODs: LOD 8 holds 256^3 / 8^8 = 1 voxel
 MESH_BLOCK, MESH_BLOCK_LODS = 256, 9
-MESH_PLAIN_STEPS = {SMALL_WH: 4, MAIN_WH: 1}
+# steps held against a plain session: the two warmup steps at 320x180 (the
+# second flips the pitch, so both iteration directions), one at 1080p
+MESH_PLAIN_STEPS = {SMALL_WH: 2, MAIN_WH: 1}
 WORLD_FIELDS = ("col_offset", "col_runs", "col_color_offset", "col_min",
                 "col_max", "runs", "colors")
 
@@ -1256,7 +1267,25 @@ def validate_in_child(path: str) -> subprocess.Popen:
                                 os.path.abspath(__file__)))
 
 
-def finish_validation(proc: subprocess.Popen, timeout: float = 300) -> None:
+def build_world_in_child(scene: str) -> subprocess.Popen:
+    """Build and cache one of bench.py's scenes (``harness.scene_world``) in
+    a child process, so that its host-side numpy overlaps the card's work;
+    the child is killed at exit if it still runs."""
+    code = ("import sys\n"
+            "from cpuvox_tpu_torch.bench.harness import scene_world\n"
+            "scene_world(sys.argv[1], log=print)\n")
+    proc = subprocess.Popen([sys.executable, "-c", code, scene],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, cwd=os.path.dirname(
+                                os.path.abspath(__file__)))
+    atexit.register(proc.kill)
+    return proc
+
+
+def wait_child(proc: subprocess.Popen, what: str,
+               timeout: float) -> tuple[str, float]:
+    """A child's output and the seconds waited for it; raises if it fails
+    or outlasts ``timeout`` (then it is killed)."""
     t0 = time.perf_counter()
     try:
         out, _ = proc.communicate(timeout=timeout)
@@ -1265,9 +1294,14 @@ def finish_validation(proc: subprocess.Popen, timeout: float = 300) -> None:
         proc.communicate()
         raise
     if proc.returncode:
-        raise AssertionError(f"rle.validate_world failed:\n{out}")
+        raise AssertionError(f"{what} failed:\n{out}")
+    return out, time.perf_counter() - t0
+
+
+def finish_validation(proc: subprocess.Popen, timeout: float = 300) -> None:
+    out, waited = wait_child(proc, "rle.validate_world", timeout)
     log(f"[mesh] (c) rle.validate_world on every LOD (a child process; "
-        f"waited {time.perf_counter() - t0:.1f} s for it): "
+        f"waited {waited:.1f} s for it): "
         + "; ".join(out.strip().splitlines()))
 
 
@@ -2306,6 +2340,75 @@ PREVIOUS_TXT = {
 }
 
 
+# phase 13: the benchmark entry's modes, each run as a user runs it: its
+# BENCH_* knobs, the metric names it must print (in order), and whether it
+# passes the verify gate (the flythrough modes)
+BENCH_RUNS = [
+    ({"BENCH_SCENE": "terrain2048", "BENCH_FRAMES": "8"},
+     ["fps_terrain2048_1920x1080"], True),
+    ({"BENCH_SCENE": "layered2048", "BENCH_WH": "320x180",
+      "BENCH_FRAMES": "8"}, ["fps_layered2048_320x180"], True),
+    ({"BENCH_SCENE": "rollout64"}, ["rollout64_cams_per_sec_256x256"], False),
+    ({"BENCH_SCENE": "dynamic512"},
+     ["fps_dynamic512_1280x720_rebuild_per_frame"], False),
+    ({"BENCH_SCENE": "convert_town2048"},
+     ["convert_town2048_seconds_steady_state"], False),
+]
+BENCH_TIMEOUT_S = 300
+
+
+def check_bench(card: str) -> list[dict]:
+    """Phase 13: ``python -m cpuvox_tpu_torch.bench`` in each mode of
+    ``BENCH_RUNS``, a process each (its SIGALRM watchdog needs its own main
+    thread), on the worlds the earlier phases cached in ``.bench_cache/``.
+    Each must exit 0 and print only JSON lines, the mode's metric names in
+    order, every record with ``verify`` absent (the gate passed: its log
+    line must read 0 differing pixels and texels), 0 magenta pixels and
+    this card's line."""
+    records = []
+    for env, names, gated in BENCH_RUNS:
+        what = " ".join(f"{k}={v}" for k, v in env.items())
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "cpuvox_tpu_torch.bench"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            env={**os.environ, **env}, capture_output=True, text=True,
+            timeout=BENCH_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        if r.returncode:
+            raise AssertionError(f"[bench] {what}: exit {r.returncode}\n"
+                                 f"{r.stdout[-3000:]}\n{r.stderr[-6000:]}")
+        recs = []
+        for line in r.stdout.splitlines():
+            try:
+                recs.append(json.loads(line))
+            except json.JSONDecodeError:
+                raise AssertionError(f"[bench] {what}: a line of standard "
+                                     f"output that is not JSON: {line!r}")
+        if [rec.get("metric") for rec in recs] != names:
+            raise AssertionError(f"[bench] {what}: printed {recs}, not the "
+                                 f"metrics {names}")
+        gate = ""
+        if gated:
+            gates = [ln for ln in r.stderr.splitlines()
+                     if ln.startswith("backend verify")]
+            if len(gates) != 1 or " 0 screen pixels and 0 raybuffer " \
+                    "texels differ" not in gates[0]:
+                raise AssertionError(f"[bench] {what}: the verify gate did "
+                                     f"not pass: {gates}")
+            gate = f"; {gates[0]}"
+        for rec in recs:
+            if "verify" in rec or rec.get("magenta_pixels", 0) \
+                    or rec.get("card") != card:
+                raise AssertionError(f"[bench] {what}: {rec}")
+        log(f"[bench] {what}: exit 0 in {seconds:.1f} s, {len(recs)} "
+            f"record(s), the metric names bench.py prints{gate}")
+        for rec in recs:
+            log(f"[bench] {json.dumps(rec)} | {card}")
+        records += recs
+    return records
+
+
 def shard_only(card: str, dev: torch.device) -> int:
     """Phase 12 alone, on the worlds it needs: the kernels built, then
     terrain2048 and layered2048 at 1920x1080 as ``main`` builds them."""
@@ -2359,6 +2462,9 @@ def main() -> int:
     check_card_arithmetic(dev)
     if shard_alone:
         return shard_only(card, dev)
+    # layered2048's world (some 55 s of host numpy) builds in a child while
+    # the card works on terrain2048; phase 6 loads it from the cache
+    layered_build = build_world_in_child("layered2048")
 
     t0 = time.perf_counter()
     # the roll's previous design, to be timed beside it, builds meanwhile
@@ -2449,6 +2555,8 @@ def main() -> int:
     check_split_layout(dev, stats)
 
     # ---- layered2048: the occupancy-gated march
+    out, waited = wait_child(layered_build, "the layered2048 build", 600)
+    log(f"{out.strip()} (a child process; waited {waited:.1f} s for it)")
     layered_lods = layered2048(log=log)
     t0 = time.perf_counter()
     layered = Renderer.create(layered_lods, main_cfg, device=dev,
@@ -2497,6 +2605,11 @@ def main() -> int:
     shard = check_shard(card, stats, terrain, terrain_lods, layered,
                         layered_lods)
     log(f"[shard] done at {time.perf_counter() - t_start:.1f} s")
+    # the entry's processes load the cached worlds and upload their own
+    del terrain, layered, terrain_lods, layered_lods
+    torch.cuda.empty_cache()
+    bench = check_bench(card)
+    log(f"[bench] done at {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for kname, src, replaces in KERNELS:
@@ -2564,6 +2677,9 @@ def main() -> int:
     log(f"[summary] town{MESH_MAX_DIM} conversion {conv['seconds_cold']:.3f} s "
         f"cold, {conv['seconds_steady']:.3f} s steady; interactive step p50 "
         + ", ".join(f"{wh} {m['step_ms_p50']:.3f} ms" for wh, m in inter.items())
+        + f" ({card})")
+    log("[summary] the benchmark entry: " + ", ".join(
+        f"{r['metric']} {r['value']} {r['unit']}" for r in bench)
         + f" ({card})")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(card)

@@ -1,10 +1,6 @@
 """Timing harness (``cpuvox_tpu/bench/harness.py`` and ``bench.py``'s
-rollout and dynamic modes) on a CUDA card.
-
-    python -m cpuvox_tpu_torch.bench.harness rollout [--compact]
-    python -m cpuvox_tpu_torch.bench.harness dynamic [--exact-lod1]
-    python -m cpuvox_tpu_torch.bench.harness convert
-    python -m cpuvox_tpu_torch.bench.harness interactive
+rollout, dynamic and interactive modes) on a CUDA card: the runners that
+``python -m cpuvox_tpu_torch.bench`` (``bench/entry.py``) drives.
 
 ``run_flythrough`` renders frames evenly spaced along the benchmark path and
 reports the JAX harness's metric names: ``fps``, ``frame_ms_p50`` and
@@ -17,10 +13,8 @@ and reports ``fps_dynamic512_1280x720_rebuild_per_frame``.
 the steady-state seconds, each stage synced; ``bench.py``'s
 ``convert_<scene>_seconds_steady_state``), and ``run_interactive`` drives an
 ``InteractiveSession`` with ``bench.py:285-316``'s scripted inputs and
-reports its step p50 (the CLI names it
-``interactive_step_ms_p50_<scene>_<W>x<H>``); the CLI runs both on the
-procedural town (``bench/meshes.py``) while the reference's mill.obj is not
-in the repository.
+reports its step p50 (the entry names it
+``interactive_step_ms_p50_<scene>_<W>x<H>``).
 A frame's time is the host clock around ``render_device`` up to a
 ``torch.cuda.synchronize()``; the device span of the same frame, from CUDA
 events, is reported beside it (``frame_gpu_ms_p50``).  The march checks ray
@@ -31,8 +25,7 @@ fallback: a renderer that is not on a CUDA device is refused.
 """
 from __future__ import annotations
 
-import argparse
-import json
+import functools
 import os
 import sys
 import time
@@ -43,11 +36,23 @@ import torch
 from cpuvox_tpu_torch.bench import path as bench_path
 from cpuvox_tpu_torch.render.raymarch import MAGENTA_I32
 
-# bench.py's scenes, as bench.py:145-168 builds them: its default dense
-# terrain, and its deep, mostly-empty headline scene
-TERRAIN = dict(dims=(2048, 256, 2048), seed=1234, shell_depth=9, lod_levels=6)
-LAYERED = dict(dims=(2048, 512, 2048), seed=99, shell_depth=8, n_layers=13,
-               lod_levels=6, footprint=0.55)
+# bench.py's scenes, as bench.py:145-168 builds them (its ``build_world``):
+# the procedural builder and its keyword arguments.  terrain2048 is its
+# default dense terrain, layered2048 its deep, mostly-empty headline scene;
+# ``layered`` is layered1024 under bench.py's other cache name
+SCENE_BUILDS = {
+    "terrain2048": ("heightmap_world", dict(
+        dims=(2048, 256, 2048), seed=1234, shell_depth=9, lod_levels=6)),
+    "terrain1024": ("heightmap_world", dict(
+        dims=(1024, 256, 1024), seed=1234, shell_depth=9, lod_levels=6)),
+    "layered2048": ("layered_world", dict(
+        dims=(2048, 512, 2048), seed=99, shell_depth=8, n_layers=13,
+        lod_levels=6, footprint=0.55)),
+    "layered1024": ("layered_world", dict(
+        dims=(1024, 256, 1024), seed=99, shell_depth=8, n_layers=12,
+        lod_levels=6)),
+}
+SCENE_BUILDS["layered"] = SCENE_BUILDS["layered1024"]
 CACHE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     ".bench_cache")
@@ -65,30 +70,34 @@ def _cached(name, build, log):
         return lods
     lods = build()
     log(f"[world] built {name} ({lods[0].voxel_count} LOD0 voxels) in "
-        f"{time.perf_counter() - t0:.1f} s (numpy, host)")
+        f"{time.perf_counter() - t0:.1f} s")
     os.makedirs(CACHE_DIR, exist_ok=True)
     save.save_world(cache, lods)
     return lods
 
 
-def terrain2048(log=lambda *a: print(*a, file=sys.stderr)):
-    """The terrain2048 LOD chain (dense: the occupancy gate stays off)."""
+def scene_world(scene: str, log=lambda *a: print(*a, file=sys.stderr)):
+    """The LOD chain of one of bench.py's procedural scenes
+    (``SCENE_BUILDS``), cached in .bench_cache/<scene>.world as bench.py
+    caches it."""
     from cpuvox_tpu_torch.models import procedural
 
-    return _cached("terrain2048",
-                   lambda: procedural.heightmap_world(**TERRAIN), log)
+    fn, kwargs = SCENE_BUILDS[scene]
+    return _cached(scene, lambda: getattr(procedural, fn)(**kwargs), log)
+
+
+def terrain2048(log=lambda *a: print(*a, file=sys.stderr)):
+    """The terrain2048 LOD chain (dense: the occupancy gate stays off)."""
+    return scene_world("terrain2048", log)
 
 
 def layered2048(log=lambda *a: print(*a, file=sys.stderr)):
     """The layered2048 LOD chain: deep RLE and most LOD0 columns empty, so
     the occupancy gate resolves on."""
-    from cpuvox_tpu_torch.models import procedural
-
-    return _cached("layered2048",
-                   lambda: procedural.layered_world(**LAYERED), log)
+    return scene_world("layered2048", log)
 
 
-SCENES = {"terrain2048": terrain2048, "layered2048": layered2048}
+SCENES = {s: functools.partial(scene_world, s) for s in SCENE_BUILDS}
 
 
 def run_flythrough(renderer, n_frames: int = 24,
@@ -414,37 +423,3 @@ def run_interactive(lods, whs=((320, 180), (1920, 1080)), n_steps: int = 24,
                                   for k in after},
             "device": torch.cuda.get_device_name(s.renderer.device)}
     return out
-
-
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", choices=["rollout", "dynamic", "convert",
-                                     "interactive"])
-    ap.add_argument("--compact", action="store_true",
-                    help="march on a live-ray index")
-    ap.add_argument("--exact-lod1", action="store_true",
-                    help="dynamic: the voxel-exact LOD1 (max_runs 9)")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("harness: no CUDA device", file=sys.stderr)
-        return 2
-    if args.mode == "rollout":
-        m = run_rollout(rollout_renderer(compact=args.compact))
-    elif args.mode in ("convert", "interactive"):
-        path, max_dim = town_obj(), 2048
-        m, lods = run_convert(path, max_dim)
-        if args.mode == "interactive":
-            scene = os.path.splitext(os.path.basename(path))[0] + str(max_dim)
-            inter = run_interactive(lods)
-            for wh, mi in inter.items():
-                mi[f"interactive_step_ms_p50_{scene}_{wh}"] = mi["step_ms_p50"]
-            m = {"convert": m, "interactive": inter}
-    else:
-        m = run_dynamic(dynamic_terrain(exact_lod1=args.exact_lod1,
-                                        compact=args.compact))
-    print(json.dumps(m))
-    return 0
-
-
-if __name__ == "__main__":
-    sys.exit(main())

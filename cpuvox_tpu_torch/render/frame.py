@@ -352,3 +352,11 @@ class Renderer:
         td = argb_np[:n_td, :rh]
         lr = argb_np[n_td:n_td + n_lr, :rw]
         return screen_np, (td, lr, segs, ctxs, vp_screen, cam_data, cam)
+
+
+def render_frame(lods, cam: cm.Camera, config: RenderConfig = RenderConfig(),
+                 device="cuda"):
+    """One frame, (H, W) uint32 ARGB numpy (``cpuvox_tpu/render/frame.py``'s
+    one-shot convenience): builds the device world each call, so use a
+    Renderer for interactive and benchmark loops."""
+    return Renderer.create(lods, config, device=device).render(cam)
