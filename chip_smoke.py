@@ -137,19 +137,49 @@ non-zero (no phase catches its own failure):
    through the kernels and the plain versions, screens and raybuffers
    equal), then rollout64, dynamic512 and convert_town2048; each must exit
    0 and print only JSON lines, ``bench.py``'s metric names, no ``verify``
-   key, 0 magenta pixels and the card's line; each record is printed.
+   key, 0 magenta pixels and the card's line, and in a flythrough record
+   both ``fps_seq`` and ``fps_pipe``; each record is printed.
+
+[loop], at the end of phases 3, 4 and 6: the default Renderer's march, one
+launch of the march graph (``render/march_graph.py``: a WHILE conditional
+node whose condition the loop-control kernel, ``csrc/march_loop.cu``,
+sets), on terrain2048 in index and ARGB mode (dense) and layered2048
+(gated), at 1920x1080.  First (phase 3) the loop-control kernel against its
+plain version at the frame's ray count, timed.  Then for each variant: (a)
+on path cameras in both iteration directions the graph march == the
+host-driven march with the kernels on the same rays, raybuffer and screen,
+and at 320x180 a frame == the plain versions in the direction that phase
+3's, 4's or 6's small frame (whose "no compaction" variant is the graph
+march) did not hold; (b) a warm ``render_device`` under
+``torch.cuda.set_sync_debug_mode("error")``; (c) the device counter's
+iterations == the host loop's chunks or gated iterations on each camera;
+(d) the 24-frame flythrough, sequential and pipelined (frame i dispatched
+before frame i-1 is waited for), its launch counts set to 0 just before it
+and read just after: the pipelined screens == the sequential ones, 0
+magenta, one graph launch a frame, the roll, the rasterizer and the control
+kernel launched once an iteration by the graph (and the control kernel once
+more a frame), and a raybuffer ``render_device`` returned unchanged after
+the next frame; (e) frame p50 sequential and pipelined, the device span,
+the pipelined pass's device busy share under ``torch.profiler`` and, from
+CUDA events, the card's time a frame after its setup against the
+pipelined pass's wall, and each variant's capture and instantiation ms and
+the private pool's bytes.
 
 The three flythrough Renderers are created with ``compact=True`` (the march
-on a live-ray index; the Renderer's default is the full-width march, which
-the oracle check, the split-layout frame and a variant of each small frame
-run).  Kernel launch counts are set to 0 just before each flythrough, the
-rollout's first timed run, the dynamic terrain's (``exact_lod1`` off)
+on a live-ray index, driven from the host; the Renderer's default is the
+full-width march graph, which [loop], the oracle check, the split-layout
+frame, the dynamic worlds, the mesh path's sessions and a variant of each
+small frame run).  Each flythrough makes the harness's sequential and
+pipelined passes.  Kernel launch counts are set to 0 just before each
+flythrough, [loop]'s, the rollout's first timed run, the dynamic terrain's (``exact_lod1`` off)
 timed run, the mesh path's 1080p interactive run (two warmup steps and
 24 timed) and each sharded run of phase 12 (summed as the ``shard`` path),
 and read just after each; launches made to compare or time a kernel are
-not counted.  The last lines are the card line, one JSON line of
-kernels (``launches_by_path`` per path; the batched phase 2,
-``reproject_screens``, has its own entry), and
+not counted; a march graph's launches are counted on the device
+(``ops/march_loop.kernel_launches``).  The last lines are the card line,
+one JSON line of kernels (``launches_by_path`` per path; the batched phase
+2, ``reproject_screens``, and the loop-control kernel, ``march_loop``, have
+their own entries), and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -178,6 +208,11 @@ KERNELS = [  # name, source, the TPU kernel it replaces
     ("reproject_screen", "cpuvox_tpu_torch/csrc/reproject.cu",
      "cpuvox_tpu/ops/reproject_kernel.py:64"),
 ]
+# the march loop's control: no Pallas kernel computes it on the TPU, the
+# jitted while_loop's condition does
+LOOP_KERNEL = ("march_loop", "cpuvox_tpu_torch/csrc/march_loop.cu",
+               "cpuvox_tpu/render/raymarch.py:928")
+LOOP_PATHS = ("terrain2048", "terrain2048 ARGB", "layered2048")
 # the fused phase-2 kernel's f32 and integer operations: a segment's score
 # at a pixel (two correctly rounded divisions, counted as one each), and
 # then a pixel's ray index, sample address and resolve
@@ -740,15 +775,11 @@ def flythrough(renderer, scene: str, card: str, gated: bool):
     phase-2 index map counted (the frames through the kernels must make
     none): phase 2 is one launch of the fused kernel a frame."""
     from cpuvox_tpu_torch.bench.harness import run_flythrough
-    from cpuvox_tpu_torch.ops import phase1_kernel, reproject_kernel
-    from cpuvox_tpu_torch.ops import roll_kernel
+    from cpuvox_tpu_torch.ops import march_loop, phase1_kernel
+    from cpuvox_tpu_torch.ops import reproject_kernel
     from cpuvox_tpu_torch.render import raymarch, reproject
 
-    counters = (roll_kernel, phase1_kernel, reproject_kernel)
-    for m in counters:
-        m.launches = 0
-    phase1_kernel.chunk_launches = 0
-    reproject_kernel.sample_launches = 0
+    march_loop.reset_launches()
     raymarch.gated_stats.update(iterations=0, rewinds=0)
     raymarch.compact_stats.update(rebuilds=0, chunks=0, ray_slots=0)
     watched = ((raymarch, "_fetch_columns"), (reproject, "segment_ray_index"))
@@ -768,10 +799,12 @@ def flythrough(renderer, scene: str, card: str, gated: bool):
     finally:
         for (m, name), fn in zip(watched, originals):
             setattr(m, name, fn)
-    launches = [m.launches for m in counters]
+    counts = march_loop.kernel_launches()
+    launches = [counts[k[0]] for k in KERNELS]
     gstats = dict(raymarch.gated_stats)
     cstats = dict(raymarch.compact_stats)
-    frames = N_FRAMES + 2  # the harness's two warmup frames count too
+    # the harness's two warmup frames count too, and its pipelined pass
+    frames = 2 * N_FRAMES + 2
     if any(calls.values()) or phase1_kernel.chunk_launches:
         raise AssertionError(f"{scene}: torch calls {calls} and "
                              f"{phase1_kernel.chunk_launches} launches of the "
@@ -798,7 +831,8 @@ def flythrough(renderer, scene: str, card: str, gated: bool):
               f"mean {cstats['ray_slots'] / cstats['chunks']:.0f} of "
               f"{renderer.ray_capacity} ray slots a chunk")
     log(f"[{scene}] {MAIN_WH[0]}x{MAIN_WH[1]} flythrough, {N_FRAMES} frames "
-        f"on {card}: fps {metrics['fps']:.3f}, frame p50 "
+        f"on {card}: fps {metrics['fps']:.3f} (pipelined "
+        f"{metrics['fps_pipe']:.3f}), frame p50 "
         f"{metrics['frame_ms_p50']:.1f} ms (device span p50 "
         f"{metrics['frame_gpu_ms_p50']:.1f} ms), "
         f"{metrics['ray_columns_per_sec']:.0f} ray columns/s, 0 magenta, 0 "
@@ -845,6 +879,266 @@ def check_lods_past_8(renderer, stats: dict) -> None:
     log(f"[lod9] roll_chunk at 9 LOD distances (the memory form) == plain on "
         f"the adversarial state at C=48, rays up to LOD {top}, 0 elements "
         f"differ; the lod_levels 9 frame's rays reached LOD {frame_top}")
+
+
+# ------------------------------------------------------------- the march loop
+
+# path cameras of the [loop] phase: both iteration directions appear
+LOOP_PATH_T = (0.0, 0.35, 0.6, 0.9)
+SMALL_FRAME_T = 0.35  # check_small_frame's camera
+
+
+def check_loop_kernel(renderer, stats: dict) -> dict:
+    """The loop-control kernel against its plain version at the frame's ray
+    count (tolerance 0: alive, the counter and the condition), on seeded
+    masks with rays alive, with none alive, at the budget's end, as the
+    first check, and at an odd count from an odd address (its byte path);
+    then its time against the plain version and its bound."""
+    from cpuvox_tpu_torch.ops import march_loop
+
+    dev = renderer.device
+    R = renderer.ray_capacity
+    rng = np.random.default_rng(7)
+
+    def mask(p):
+        return torch.from_numpy(rng.random(R + 1) < p).to(dev)
+
+    cases = [(mask(0.5), mask(0.5), 3, 100, False),
+             (mask(0.5), torch.zeros(R + 1, dtype=torch.bool, device=dev),
+              3, 100, False),
+             (mask(0.1), mask(0.9), 99, 100, False),
+             (mask(0.5), mask(0.5), 41, 100, True)]
+    conds = []
+    for alive, rs_alive, i, mx, first in cases:
+        for lo in (0, 1):  # the word path, then R - 1 rays from an odd byte
+            a, b = alive[lo:lo + R - lo], rs_alive[lo:lo + R - lo]
+            got = [a.clone(), torch.tensor(i, dtype=torch.int32, device=dev)]
+            want = [a.clone(), got[1].clone()]
+            got.append(march_loop.loop_control(got[0], b, got[1], mx, first))
+            want.append(march_loop.loop_control_ref(want[0], b, want[1], mx,
+                                                    first))
+            compare("march_loop", got, want, stats)
+            conds.append(int(got[2]))
+    if conds != [1, 1, 0, 0, 0, 0, 1, 1]:
+        raise AssertionError(f"[loop] the control's conditions {conds}")
+    alive, rs_alive = mask(0.5)[:R], mask(0.5)[:R]
+    counter = torch.zeros((), dtype=torch.int32, device=dev)
+    ms = time_ms(lambda _: march_loop.loop_control(alive, rs_alive, counter,
+                                                   1 << 30), 50)
+    device = device_ms(lambda _: march_loop.loop_control(
+        alive, rs_alive, counter, 1 << 30), lambda: None, 400)
+    plain_ms = time_ms(lambda _: march_loop.loop_control_ref(
+        alive, rs_alive, counter, 1 << 30), 50)
+    # read alive and rs_alive and the counter, write alive, the counter and
+    # the condition; an AND and an OR a ray
+    nbytes, nops = 3 * R + 12, 2 * R
+    b_ms, b_by = bound(nbytes, nops)
+    out = {"ms": ms, "device_ms": device, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+           "operations": nops, "library_ms": None, "rays": R}
+    log(f"[loop] march_loop == plain at {R} rays (and {R - 1} from an odd "
+        f"address): alive, counter and condition, 0 elements differ, "
+        f"tolerance 0; kernel {ms:.4f} ms a call, {device:.4f} ms on the "
+        f"device a launch, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
+        f"({b_by}: {nbytes} B, {nops} ops), library none ({card_line()})")
+    return out
+
+
+def check_loop(renderer, tag: str, card: str, stats: dict, loop: dict):
+    """Phase [loop] on one variant of the march graph (``Renderer`` with the
+    kernels and compaction off): (a) on 1080p path cameras in both
+    iteration directions the graph march == the host-driven march with the
+    kernels on the same rays (raybuffer and screen), and at 320x180 in the
+    direction that ``check_small_frame`` did not hold, a frame == the plain
+    versions; (b) a warm ``render_device`` under
+    ``set_sync_debug_mode("error")``; (c) the device counter's iterations
+    == the host loop's on each camera; (d) the 24-frame flythrough
+    sequential and pipelined, its launch counts set to 0 just before and
+    read just after: pipelined screens == sequential, 0 magenta, one graph
+    launch a frame, and a returned raybuffer unchanged after the next
+    frame; (e) frame p50 both ways, the device span, the pipelined pass's
+    busy share under the profiler (over the profiled pass's own wall, which
+    the profiler lengthens), the card's time a frame after its setup (CUDA
+    events around the graph launch and phase 2) and its sum over the
+    pipelined pass's unprofiled wall, and each capture's times and pool
+    bytes.  Adds the path's counts and numbers to ``loop[tag]``."""
+    from cpuvox_tpu_torch.bench.breakdown import device_activities, union_us
+    from cpuvox_tpu_torch.bench.harness import run_flythrough
+    from cpuvox_tpu_torch.ops import march_loop
+    from cpuvox_tpu_torch.render import raymarch
+
+    r = renderer
+    if not (r.kernels and not r.compact and r.device.type == "cuda"):
+        raise AssertionError(f"[loop] {tag}: not a march-graph Renderer")
+    stat, key = ((raymarch.gated_stats, "iterations") if r.occupancy_on
+                 else (raymarch.compact_stats, "chunks"))
+    t_phase = time.perf_counter()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    # the profiler's tracer started before this variant's graphs are
+    # instantiated: the kernels of a graph instantiated before a process's
+    # first profile do not show in later profiles
+    with torch.profiler.profile(activities=acts):
+        torch.cuda.synchronize()
+    dirs: dict = {}
+    for t in LOOP_PATH_T:
+        cam = path_camera(r, t)
+        f = r.frame_setup(cam)
+        n0 = march_loop.graph_stats["iterations"]
+        got = r.march(f)
+        graph_it = march_loop.graph_stats["iterations"] - n0
+        h0 = stat[key]
+        host = r.march_rays(f.static, f.dda, f.alive0, f.cam_data,
+                            f.cam_data.position[1], f.iteration_direction,
+                            compact=False)
+        host_it = stat[key] - h0
+        compare(f"[loop] {tag} t={t}", [got, r.phase2(f, got)],
+                [host, r.phase2(f, host)], {})
+        if graph_it != host_it or graph_it <= 0:
+            raise AssertionError(f"[loop] {tag} t={t}: {graph_it} graph "
+                                 f"iterations, {host_it} on the host loop")
+        r.render_device(cam)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            r.render_device(cam)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        dirs.setdefault(f.iteration_direction, []).append((t, graph_it))
+    if set(dirs) != {1, -1}:
+        raise AssertionError(f"[loop] {tag}: directions {dirs}")
+    log(f"[loop] {tag} (a)-(c) {MAIN_WH[0]}x{MAIN_WH[1]}: the graph march "
+        f"== the host-driven march with the kernels, raybuffer and screen, "
+        f"0 texels and 0 pixels differ; a warm render_device under "
+        f"set_sync_debug_mode('error') raised nothing; iterations (t, "
+        f"graph == host loop) by direction {dirs}")
+
+    # (a) against the plain versions at 320x180, the other direction
+    small = dataclasses.replace(r, config=dataclasses.replace(
+        r.config, width=SMALL_WH[0], height=SMALL_WH[1]), lod_distances=None)
+    plain = dataclasses.replace(small, config=dataclasses.replace(
+        small.config, backend="xla"))
+    d_small = small.frame_setup(path_camera(small, SMALL_FRAME_T,
+                                            SMALL_WH)).iteration_direction
+    t_other = next(t for t in LOOP_PATH_T if small.frame_setup(path_camera(
+        small, t, SMALL_WH)).iteration_direction != d_small)
+    cam = path_camera(small, t_other, SMALL_WH)
+    t0 = time.perf_counter()
+    a, rb_a, _g = small.render_device(cam)
+    b, rb_b, _g = plain.render_device(cam)
+    compare(f"[loop] {tag} 320x180 plain", [a, rb_a], [b, rb_b], {})
+    log(f"[loop] {tag} (a) {SMALL_WH[0]}x{SMALL_WH[1]} at t={t_other} "
+        f"(direction {-d_small}; check_small_frame's 'no compaction' frame "
+        f"holds direction {d_small}): the graph frame == the plain versions, "
+        f"screen and raybuffer, 0 differ ({time.perf_counter() - t0:.1f} s)")
+    del small, plain
+
+    # (d) the flythrough, sequential and pipelined, counted
+    march_loop.reset_launches()
+    raymarch.gated_stats.update(iterations=0, rewinds=0)
+    m = run_flythrough(r, n_frames=N_FRAMES, log=log, keep_screens=True)
+    counts = march_loop.kernel_launches()
+    launches, iters = march_loop.graph_stats["launches"], \
+        march_loop.graph_stats["iterations"]
+    frames = 2 * N_FRAMES + 2
+    compare(f"[loop] {tag} pipelined screens", m.pop("screens_pipe"),
+            m.pop("screens_seq"), {})
+    if m["magenta_pixels"]:
+        raise AssertionError(f"[loop] {tag}: {m['magenta_pixels']} magenta "
+                             "pixels")
+    if (launches != frames or iters <= 0 or counts["roll_chunk"] != iters
+            or counts["rasterize_visits"] != iters
+            or counts["march_loop"] != frames + iters
+            or counts["reproject_screen"] != frames):
+        raise AssertionError(f"[loop] {tag}: {launches} graph launches and "
+                             f"{iters} iterations in {frames} frames, "
+                             f"kernel counts {counts}")
+    cams = [path_camera(r, t) for t in (0.35, 0.6)]
+    _s, rb0, _g = r.render_device(cams[0])
+    keep = rb0.clone()
+    _s, rb1, _g = r.render_device(cams[1])
+    torch.cuda.synchronize()
+    if (not torch.equal(rb0, keep) or torch.equal(rb0, rb1)
+            or rb0.data_ptr() == r._graph.state.rs.raybuf.data_ptr()):
+        raise AssertionError(f"[loop] {tag}: a returned raybuffer changed "
+                             "with the next frame, or aliases the graph's")
+
+    # (e) the pipelined pass's busy share, under the profiler
+    path = [path_camera(r, t) for t in np.linspace(0.0, 1.0, N_FRAMES)]
+    # the pass twice under the profiler, the second read
+    for _ in range(2):
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            previous = None
+            for cam in path:
+                r.render_device(cam)
+                ready = torch.cuda.Event()
+                ready.record()
+                if previous is not None:
+                    previous.synchronize()
+                previous = ready
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+    # the card's own time a frame: CUDA events around the march graph's
+    # launch and phase 2, the frame's setup done and synced before
+    frame_dev = []
+    for cam in path:
+        f = r.frame_setup(cam)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        r.phase2(f, r.march(f))
+        end.record()
+        torch.cuda.synchronize()
+        frame_dev.append(start.elapsed_time(end))
+    dev_frame_ms = float(np.median(frame_dev))
+    dev = device_activities(prof)
+    if not dev:
+        raise AssertionError(f"[loop] {tag}: the profiler recorded no "
+                             "device activity")
+    busy_ms = union_us((a_, b_) for _n, a_, b_ in dev) / 1e3
+    wall_ms = N_FRAMES / m["fps_pipe"] * 1e3
+    caps = r._graph.captures
+    loop[tag] = {"launches": counts, "graph_launches": launches,
+                 "iterations": iters, "fps_seq": m["fps_seq"],
+                 "fps_pipe": m["fps_pipe"], "frame_ms_p50": m["frame_ms_p50"],
+                 "frame_ms_p50_pipe": m["frame_ms_p50_pipe"],
+                 "frame_gpu_ms_p50": m["frame_gpu_ms_p50"],
+                 "busy_share_pipe": busy_ms / prof_ms,
+                 "device_frame_ms_p50": dev_frame_ms,
+                 "device_share_pipe": sum(frame_dev) / wall_ms,
+                 "captures": caps}
+    log(f"[loop] {tag} (d) {MAIN_WH[0]}x{MAIN_WH[1]} flythrough, {N_FRAMES} "
+        f"frames: pipelined screens == sequential, 0 pixels differ, 0 "
+        f"magenta; a returned raybuffer unchanged after the next frame; "
+        f"{launches} graph launches in {frames} frames (2 warmup, "
+        f"{N_FRAMES} sequential, {N_FRAMES} pipelined), {iters} "
+        f"iterations ({iters / frames:.1f} a frame): roll "
+        f"{counts['roll_chunk']}, rasterize {counts['rasterize_visits']}, "
+        f"march_loop {counts['march_loop']}, phase 2 "
+        f"{counts['reproject_screen']} ({card})")
+    log(f"[loop] {tag} (e) fps {m['fps_seq']:.3f} sequential, "
+        f"{m['fps_pipe']:.3f} pipelined; frame p50 {m['frame_ms_p50']:.3f} "
+        f"ms sequential (device span p50 {m['frame_gpu_ms_p50']:.3f} ms), "
+        f"{m['frame_ms_p50_pipe']:.3f} ms pipelined; the pipelined pass "
+        f"again under the profiler: device busy (the union of "
+        f"{len(dev)} device activities) {busy_ms:.3f} ms in its "
+        f"{prof_ms:.3f} ms, busy share {busy_ms / prof_ms:.4f} (against the "
+        f"unprofiled pass's {wall_ms:.3f} ms: {busy_ms / wall_ms:.4f}); the "
+        f"card's time a frame after its setup (events around the graph "
+        f"launch and phase 2) p50 {dev_frame_ms:.3f} ms, "
+        f"{sum(frame_dev):.3f} ms over the {N_FRAMES} frames, "
+        f"{sum(frame_dev) / wall_ms:.4f} of the unprofiled pipelined pass "
+        f"({card})")
+    for c in caps:
+        log(f"[loop] {tag} (e) capture, direction {c['direction']}, "
+            f"{'gated' if c['gated'] else 'dense'}: warm iteration "
+            f"{c['warm_ms']:.3f} ms, capture {c['capture_ms']:.3f} ms, "
+            f"instantiate {c['instantiate_ms']:.3f} ms, private pool "
+            f"+{c['pool_bytes']} bytes")
+    log(f"[loop] {tag} done in {time.perf_counter() - t_phase:.1f} s")
 
 
 ROLLOUT_WH = (256, 256)
@@ -1100,8 +1394,7 @@ def check_dynamic(card: str, stats: dict) -> dict:
     ``exact_lod1=False`` timed run (the demo's setting) and read after."""
     from cpuvox_tpu_torch.bench import harness
     from cpuvox_tpu_torch.config import RenderConfig
-    from cpuvox_tpu_torch.ops import phase1_kernel, roll_kernel
-    from cpuvox_tpu_torch.ops import reproject_kernel as rk
+    from cpuvox_tpu_torch.ops import march_loop
     from cpuvox_tpu_torch.render.raymarch import MAGENTA_I32
     from cpuvox_tpu_torch.world import dynamic as td
 
@@ -1152,18 +1445,22 @@ def check_dynamic(card: str, stats: dict) -> dict:
         if time.perf_counter() - t1 > 2.0:
             n_frames = 3
         if not exact:
-            for m in (roll_kernel, phase1_kernel, rk):
-                m.launches = 0
-            rk.screens_launches = 0
+            march_loop.reset_launches()
         m = harness.run_dynamic(d, n_frames=n_frames, log=log)
         if not exact:
-            out["launches"] = {"roll_chunk": roll_kernel.launches,
-                               "rasterize_visits": phase1_kernel.launches,
-                               "reproject_screen": rk.launches}
+            out["launches"] = {k[0]: march_loop.kernel_launches()[k[0]]
+                               for k in KERNELS}
             if min(out["launches"].values()) <= 0:
                 raise AssertionError(f"[dynamic] launches {out['launches']}")
         if m["magenta_pixels"]:
             raise AssertionError("[dynamic] magenta pixels in the timed run")
+        # after the timed frames' swaps the Renderer's march graph reads its
+        # own copy of the world, refreshed each frame; a fresh Renderer on
+        # the same arrays reads them in place
+        d.rebuild(0.55)
+        a, _rb, _g = d.renderer.render_device(cam)
+        b, _rb, _g = dataclasses.replace(d.renderer).render_device(cam)
+        compare(f"dynamic swapped world, exact_lod1 {exact}", [a], [b], {})
         out[exact] = m
         log(f"[dynamic] exact_lod1 {exact}: "
             f"{m['fps']:.3f} fps over {n_frames} frames"
@@ -1173,7 +1470,9 @@ def check_dynamic(card: str, stats: dict) -> dict:
             f"{m['render_ms_p50']:.3f} ms; launches a frame: roll "
             f"{m['launches_per_frame']['roll_chunk']:.1f}, rasterize "
             f"{m['launches_per_frame']['rasterize_visits']:.1f}, phase 2 "
-            f"{m['launches_per_frame']['reproject_screen']:.1f} ({card})")
+            f"{m['launches_per_frame']['reproject_screen']:.1f}; after the "
+            f"swaps, a frame == a fresh Renderer's on the same arrays, 0 "
+            f"pixels differ ({card})")
         del d, plain
 
     # an editable world: the build, three column edits and the chain
@@ -1322,7 +1621,7 @@ def split_steps(replays, timed: dict, card: str):
     Returns (the stages' medians, the busy share)."""
     from cpuvox_tpu_torch.bench import harness
     from cpuvox_tpu_torch.bench.breakdown import device_activities, union_us
-    from cpuvox_tpu_torch.ops import phase1_kernel
+    from cpuvox_tpu_torch.ops import march_loop
 
     s, sp = replays
     r = s.renderer
@@ -1342,11 +1641,11 @@ def split_steps(replays, timed: dict, card: str):
         f = r.frame_setup(s.cam)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
-        n0 = phase1_kernel.launches
+        n0 = march_loop.kernel_launches()["rasterize_visits"]
         rb = r.march(f)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
-        iters.append(phase1_kernel.launches - n0)
+        iters.append(march_loop.kernel_launches()["rasterize_visits"] - n0)
         screen = r.phase2(f, rb)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
@@ -1404,8 +1703,7 @@ def check_mesh(card: str, dev: torch.device) -> dict:
     from cpuvox_tpu_torch.assets.pipeline import convert_obj_to_world
     from cpuvox_tpu_torch.bench import harness
     from cpuvox_tpu_torch.frontend.interactive import InteractiveSession
-    from cpuvox_tpu_torch.ops import phase1_kernel, roll_kernel
-    from cpuvox_tpu_torch.ops import reproject_kernel as rk
+    from cpuvox_tpu_torch.ops import march_loop
     from cpuvox_tpu_torch.utils.profiling import FrameProfiler
     from cpuvox_tpu_torch.world import rle_device, save
 
@@ -1582,15 +1880,10 @@ def check_mesh(card: str, dev: torch.device) -> dict:
     metrics = harness.run_interactive(None, whs=whs[:1], sessions=sessions[:1],
                                       log=log)
     replays = [copy_session(sessions[1]) for _ in range(2)]
-    for m in (roll_kernel, phase1_kernel, rk):
-        m.launches = 0
-    rk.screens_launches = 0
+    march_loop.reset_launches()
     metrics.update(harness.run_interactive(None, whs=whs[1:],
                                            sessions=sessions[1:], log=log))
-    launches = {"roll_chunk": roll_kernel.launches,
-                "rasterize_visits": phase1_kernel.launches,
-                "reproject_screen": rk.launches,
-                "reproject_screens": rk.screens_launches}
+    launches = march_loop.kernel_launches()
     if min(launches[k_[0]] for k_ in KERNELS) <= 0:
         raise AssertionError(f"[mesh] (e) launches {launches}: a kernel of "
                              "the path did not run")
@@ -1637,17 +1930,11 @@ SHARD_ROLLOUT_STEPS = 4
 def shard_counts_run(tally: dict, fn):
     """``fn()`` with the kernels' launch counts set to 0 just before it and
     added to ``tally`` just after it."""
-    from cpuvox_tpu_torch.ops import phase1_kernel, roll_kernel
-    from cpuvox_tpu_torch.ops import reproject_kernel as rk
+    from cpuvox_tpu_torch.ops import march_loop
 
-    for m in (roll_kernel, phase1_kernel, rk):
-        m.launches = 0
-    rk.screens_launches = 0
+    march_loop.reset_launches()
     out = fn()
-    for k, v in (("roll_chunk", roll_kernel.launches),
-                 ("rasterize_visits", phase1_kernel.launches),
-                 ("reproject_screen", rk.launches),
-                 ("reproject_screens", rk.screens_launches)):
+    for k, v in march_loop.kernel_launches().items():
         tally[k] = tally.get(k, 0) + v
     return out
 
@@ -2401,6 +2688,11 @@ def check_bench(card: str) -> list[dict]:
             if "verify" in rec or rec.get("magenta_pixels", 0) \
                     or rec.get("card") != card:
                 raise AssertionError(f"[bench] {what}: {rec}")
+            if rec["metric"].startswith(("fps_terrain", "fps_layered")) and \
+                    not all(isinstance(rec.get(k), float)
+                            for k in ("fps_seq", "fps_pipe")):
+                raise AssertionError(f"[bench] {what}: the flythrough's "
+                                     f"record lacks fps_seq or fps_pipe: {rec}")
         log(f"[bench] {what}: exit 0 in {seconds:.1f} s, {len(recs)} "
             f"record(s), the metric names bench.py prints{gate}")
         for rec in recs:
@@ -2517,6 +2809,10 @@ def main() -> int:
     t_caps["roll_previous"] = prev_roll["previous design"]
     t_times = time_kernels(t_caps)
     check_lods_past_8(terrain, stats)
+    # [loop]: the default Renderer's march, one graph launch a frame
+    loop: dict = {"kernel": check_loop_kernel(terrain, stats)}
+    check_loop(dataclasses.replace(terrain, compact=False), "terrain2048",
+               card, stats, loop)
     log(f"[terrain] done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- terrain2048 in ARGB mode: kernel 2 writes the inline colors
@@ -2542,12 +2838,16 @@ def main() -> int:
     check_small_frame(argb, "argb", [
         ("ARGB kernels", {}, None, True),
         ("ARGB plain", {"backend": "xla"}, None, True),
-        ("index-mode kernels", {}, terrain, True)], stats)
+        ("index-mode kernels", {}, terrain, True),
+        ("ARGB kernels, no compaction", {}, None, False)], stats)
     a_launches, _m, _g = flythrough(argb, "argb", card, gated=False)
     check_argb_frames(argb, terrain, card)
     a_caps["dims"] = adw.dims
     a_caps["roll_previous"] = prev_roll["previous design"]
     a_times = time_kernels(a_caps)
+    check_loop(dataclasses.replace(argb, compact=False, config=(
+        dataclasses.replace(argb.config, host_init=True))),
+        "terrain2048 ARGB", card, stats, loop)
     del argb, a_caps, adw
     torch.cuda.empty_cache()
     log(f"[argb] done at {time.perf_counter() - t_start:.1f} s")
@@ -2592,6 +2892,8 @@ def main() -> int:
         "phase2": (p2args, sample_maps(layered, f.tables)),
         "roll_previous": prev_roll["previous design"],
         "dims": dw.dims, "plain_reps": 1})
+    check_loop(dataclasses.replace(layered, compact=False), "layered2048",
+               card, stats, loop)
     log(f"[layered] done at {time.perf_counter() - t_start:.1f} s")
     del g_caps, busiest, f, p2args
     torch.cuda.empty_cache()
@@ -2645,6 +2947,8 @@ def main() -> int:
                 "terrain2048": t_launches[kname],
                 "terrain2048_argb": a_launches[kname],
                 "layered2048": l_launches[kname],
+                **{f"loop {p}": loop[p]["launches"][kname]
+                   for p in LOOP_PATHS},
                 "rollout64_256x256": rollout["launches"][kname],
                 "dynamic512_1280x720": dynamic["launches"][kname],
                 "mesh2048_1920x1080": mesh["launches"][kname],
@@ -2668,6 +2972,31 @@ def main() -> int:
             "rollout64_256x256": rollout["launches"]["reproject_screens"],
             "mesh2048_1920x1080": mesh["launches"]["reproject_screens"],
             "shard": shard["reproject_screens"]}})
+    lk = loop["kernel"]
+    kernels.append({
+        "name": "march_loop", "route": "cuda", "source": LOOP_KERNEL[1],
+        "replaces": LOOP_KERNEL[2],
+        "launches": loop["layered2048"]["launches"]["march_loop"],
+        "max_abs_err": stats["march_loop"]["max_abs_err"],
+        "ms": lk["ms"], "device_ms": lk["device_ms"],
+        "plain_ms": lk["plain_ms"], "bound_ms": lk["bound_ms"],
+        "bound_by": lk["bound_by"], "library_ms": lk["library_ms"],
+        "launches_by_path": {f"loop {p}": loop[p]["launches"]["march_loop"]
+                             for p in LOOP_PATHS}})
+    for p in LOOP_PATHS:
+        v = loop[p]
+        log(f"[summary] [loop] {p}: fps {v['fps_seq']:.3f} sequential, "
+            f"{v['fps_pipe']:.3f} pipelined; frame p50 "
+            f"{v['frame_ms_p50']:.3f} ms, pipelined "
+            f"{v['frame_ms_p50_pipe']:.3f} ms, device span p50 "
+            f"{v['frame_gpu_ms_p50']:.3f} ms, the card's time a frame "
+            f"{v['device_frame_ms_p50']:.3f} ms, pipelined busy share "
+            f"{v['busy_share_pipe']:.4f} (profiler), "
+            f"{v['device_share_pipe']:.4f} (events); captures (ms capture / "
+            f"instantiate, pool bytes): " + ", ".join(
+                f"{c['direction']:+d} {c['capture_ms']:.2f} / "
+                f"{c['instantiate_ms']:.2f}, {c['pool_bytes']}"
+                for c in v["captures"]) + f" ({card})")
     log(f"[summary] rollout cams/s (compaction off, on): "
         f"{rollout['cams_per_sec'][False]}, {rollout['cams_per_sec'][True]}, "
         f"busy share {rollout['busy_share']:.4f}; dynamic fps exact_lod1 "

@@ -16,7 +16,9 @@ path, on one card:
 1. stages, host clock with a ``torch.cuda.synchronize()`` after each: setup
    (camera, segments, reprojection tables, ray init on the device or on the
    host with its copy to the card), the phase-1 march (chunks or gated
-   iterations counted by the rasterize kernel's launch counter, the rays
+   iterations counted by the rasterize kernel's launches: its wrapper's
+   count plus the march graph's iterations from the device counter,
+   ``ops/march_loop.kernel_launches``; the rays
    rewound on the gated march, index rebuilds and mean ray slots a chunk)
    and phase 2 (reproject, resolve, upscale);
 2. whole frames unprofiled, host clock: the wall time of the pass;
@@ -32,8 +34,9 @@ path, on one card:
    (the profiler slows the host, so its own wall is printed but not used);
 5. the phase-1 march alone under ``torch.profiler``, frame setups made
    beforehand: device activities per chunk of the dense march or per gated
-   iteration (each is one launch from the host; one rasterize launch a
-   chunk or iteration), and the march's device busy time over pass 1's
+   iteration (one rasterize launch a chunk or iteration; the default march
+   is one graph launch a frame, ``--compact`` launches each from the host),
+   and the march's device busy time over pass 1's
    march time; then phase 2 alone on those marches' raybuffers, as the
    renderer runs it and through its plain torch version: device
    activities a frame, and the fused kernel's launches as its wrapper
@@ -102,9 +105,12 @@ def main(argv=None) -> int:
 
     from cpuvox_tpu_torch.bench import path as bench_path
     from cpuvox_tpu_torch.config import RenderConfig
-    from cpuvox_tpu_torch.ops import phase1_kernel, reproject_kernel
+    from cpuvox_tpu_torch.ops import march_loop, reproject_kernel
     from cpuvox_tpu_torch.render import raymarch
     from cpuvox_tpu_torch.render.frame import Renderer
+
+    def rasterize_launches():  # the march graphs' iterations included
+        return march_loop.kernel_launches()["rasterize_visits"]
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -143,7 +149,7 @@ def main(argv=None) -> int:
         f = renderer.frame_setup(cam)
         sync()
         t1 = time.perf_counter()
-        n0, w0 = phase1_kernel.launches, stats["rewinds"]
+        n0, w0 = rasterize_launches(), stats["rewinds"]
         rb = renderer.march(f, compact=compact)
         sync()
         t2 = time.perf_counter()
@@ -151,7 +157,7 @@ def main(argv=None) -> int:
         sync()
         t3 = time.perf_counter()
         row = ((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3,
-               phase1_kernel.launches - n0, stats["rewinds"] - w0,
+               rasterize_launches() - n0, stats["rewinds"] - w0,
                sum(s.ray_count for s in f.segs))
         rows.append(row)
         print(f"{t:.3f} " + " ".join(f"{x:.3f}" for x in row[:3])
@@ -263,11 +269,11 @@ def main(argv=None) -> int:
     # raybuffers
     setups = [renderer.frame_setup(cam) for cam in cams]
     sync()
-    n0 = phase1_kernel.launches
+    n0 = rasterize_launches()
     with torch.profiler.profile(activities=acts) as prof:
         raybufs = [renderer.march(f, compact=compact) for f in setups]
         sync()
-    iters = phase1_kernel.launches - n0
+    iters = rasterize_launches() - n0
     march_dev = device_activities(prof)
     march_busy_ms = union_us((s, e) for _n, s, e in march_dev) / 1e3
     unit = "gated iteration" if renderer.occupancy_on else "chunk"

@@ -17,11 +17,15 @@ reports its step p50 (the entry names it
 ``interactive_step_ms_p50_<scene>_<W>x<H>``).
 A frame's time is the host clock around ``render_device`` up to a
 ``torch.cuda.synchronize()``; the device span of the same frame, from CUDA
-events, is reported beside it (``frame_gpu_ms_p50``).  The march checks ray
-liveness once per chunk on the host, so frames cannot be pipelined: ``fps``
-is the sequential pass only.  Each frame's debug-magenta pixels (unwritten
-texels; always a bug) are counted after its timing.  There is no CPU
-fallback: a renderer that is not on a CUDA device is refused.
+events, is reported beside it (``frame_gpu_ms_p50``).  ``run_flythrough``
+then makes the JAX harness's second, pipelined pass
+(``cpuvox_tpu/bench/harness.py:46-71``): it dispatches frame i and only then
+waits for frame i-1, which a frame that reads nothing from the device
+allows (the march graph, ``render/march_graph.py``).  ``fps`` and
+``fps_seq`` are the sequential pass's, ``fps_pipe`` the pipelined one's.
+Each frame's debug-magenta pixels (unwritten texels; always a bug) are
+counted after the timing.  There is no CPU fallback: a renderer that is not
+on a CUDA device is refused.
 """
 from __future__ import annotations
 
@@ -101,8 +105,13 @@ SCENES = {s: functools.partial(scene_world, s) for s in SCENE_BUILDS}
 
 
 def run_flythrough(renderer, n_frames: int = 24,
-                   log=lambda *a: print(*a, file=sys.stderr)):
-    """Render n_frames along the benchmark path; returns the metrics dict."""
+                   log=lambda *a: print(*a, file=sys.stderr),
+                   keep_screens: bool = False):
+    """Render n_frames along the benchmark path, sequentially (a sync after
+    each frame), then pipelined (frame i dispatched before frame i-1 is
+    waited for); returns the metrics dict, and with ``keep_screens`` each
+    pass's screens (device tensors) under ``screens_seq`` and
+    ``screens_pipe``."""
     if renderer.device.type != "cuda":
         raise RuntimeError("run_flythrough times a CUDA device; the renderer "
                            f"is on {renderer.device}")
@@ -118,10 +127,10 @@ def run_flythrough(renderer, n_frames: int = 24,
         torch.cuda.synchronize()
         log(f"warmup t={t:.2f}: {time.perf_counter() - t0:.2f}s")
 
-    ray_columns = magenta = 0
-    frame_s, gpu_ms = [], []
-    for t in ts:
-        cam = bench_path.benchmark_camera(float(t), dims, (w, h))
+    cams = [bench_path.benchmark_camera(float(t), dims, (w, h)) for t in ts]
+    ray_columns = 0
+    frame_s, gpu_ms, screens = [], [], []
+    for cam in cams:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -133,10 +142,34 @@ def run_flythrough(renderer, n_frames: int = 24,
         frame_s.append(time.perf_counter() - f0)
         gpu_ms.append(start.elapsed_time(end))
         ray_columns += sum(s.ray_count for s in segs)
-        magenta += int((screen == MAGENTA_I32).sum())
+        screens.append(screen)
     total = float(np.sum(frame_s))
-    return {
+
+    # the pipelined pass: dispatch frame i, then wait for frame i-1; a
+    # frame's time is the span from one wait's end to the next
+    pipe = []
+    torch.cuda.synchronize()
+    t_pipe = time.perf_counter()
+    done = [t_pipe]
+    previous = None
+    for cam in cams:
+        screen, _rb, _geometry = renderer.render_device(cam)
+        ready = torch.cuda.Event()
+        ready.record()
+        pipe.append(screen)
+        if previous is not None:
+            previous.synchronize()
+            done.append(time.perf_counter())
+        previous = ready
+    previous.synchronize()
+    done.append(time.perf_counter())
+    total_pipe = done[-1] - t_pipe
+    magenta = sum(int((s == MAGENTA_I32).sum()) for s in screens + pipe)
+    out = {
         "fps": n_frames / total,
+        "fps_seq": n_frames / total,
+        "fps_pipe": n_frames / total_pipe,
+        "frame_ms_p50_pipe": float(np.median(np.diff(done[1:]))) * 1e3,
         "frame_ms_mean": float(np.mean(frame_s)) * 1e3,
         "frame_ms_p50": float(np.median(frame_s)) * 1e3,
         "frame_ms_max": float(np.max(frame_s)) * 1e3,
@@ -150,6 +183,9 @@ def run_flythrough(renderer, n_frames: int = 24,
         "world_voxels_lod0": int(renderer.device_world.lod0_voxels),
         "device": torch.cuda.get_device_name(renderer.device),
     }
+    if keep_screens:
+        out.update(screens_seq=screens, screens_pipe=pipe)
+    return out
 
 
 # bench.py:217: the rollout's world (a heightmap, dense march, max_runs 3)
@@ -196,12 +232,9 @@ def _require_cuda(renderer, what):
 
 
 def _launch_counts():
-    from cpuvox_tpu_torch.ops import phase1_kernel, reproject_kernel, roll_kernel
+    from cpuvox_tpu_torch.ops import march_loop
 
-    return {"roll_chunk": roll_kernel.launches,
-            "rasterize_visits": phase1_kernel.launches,
-            "reproject_screen": reproject_kernel.launches,
-            "reproject_screens": reproject_kernel.screens_launches}
+    return march_loop.kernel_launches()
 
 
 def run_rollout(renderer, n_cams: int = 64, n_steps: int = 4,

@@ -123,6 +123,15 @@ def stream_ptr(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def counted() -> bool:
+    """Whether a launch just made counts: not while the current stream is
+    being captured into a CUDA graph, where the call records the launch
+    (the graph's launches are counted on the device, ``ops/march_loop``)."""
+    import torch
+
+    return not torch.cuda.is_current_stream_capturing()
+
+
 def require(t, dtype, shape=None, name="tensor"):
     """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (and
     ``shape``); returns its data pointer."""

@@ -193,7 +193,8 @@ def rasterize_visits(rs: rm.RasterState, wa: rm.WorldArrays, cells,
               None if index is None else g(index, torch.int32, (Rk,), "index"),
               Rk, P, _build.stream_ptr(rs.raybuf))
     _build.check(code, "cpuvox_rasterize_visits")
-    launches += 1
+    if _build.counted():
+        launches += 1
     return rs
 
 

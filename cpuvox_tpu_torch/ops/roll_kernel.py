@@ -79,5 +79,6 @@ def roll_chunk(dda: rm.DDAState, alive, dirs, lod_distances, far_clip, dims,
               int(dims[0]), int(dims[2]), chunk, p_index, Rk,
               visits.data_ptr(), _build.stream_ptr(visits))
     _build.check(code, "cpuvox_roll_chunk")
-    launches += 1
+    if _build.counted():
+        launches += 1
     return dda, alive, visits

@@ -96,7 +96,13 @@ def frame_params_to(p: FrameParams, device) -> FrameParams:
     parts = [np.ascontiguousarray(x).reshape(-1) for x in p]
     words = np.concatenate([x.view(np.int32) if x.dtype == F else
                             x.astype(np.int32) for x in parts])
-    buf = torch.from_numpy(words).to(device)
+    buf = torch.from_numpy(words)
+    if torch.device(device).type == "cuda":
+        # from pinned memory, so that the copy does not wait for the card
+        # (the pinned allocator keeps the block until the copy is done)
+        buf = buf.pin_memory().to(device, non_blocking=True)
+    else:
+        buf = buf.to(device)
     out, at = [], 0
     for x in p:
         x = np.asarray(x)

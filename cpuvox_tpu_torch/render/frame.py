@@ -2,14 +2,18 @@
 
 Per frame: camera + vanishing-point segments on the host (numpy), ray init
 on the host (``ray_init``) or with ``host_init=False`` on the device
-(``device_init``), the phase-1 march (over a live-ray index where the
-Renderer was created with ``compact=True``), and phase 2: the reprojection
+(``device_init``), the phase-1 march, and phase 2: the reprojection
 in color-index space, the color resolve of the screen's pixels and the
 nearest upscale of a ``render_scale`` frame, with the kernels one launch
 (``ops/reproject_kernel.reproject_screen``).  The march is the dense one
 (roll -> fetch -> rasterize per chunk) or, where ``occupancy_on`` resolves
 true, the occupancy-gated one (``raymarch.march_gated``); both give the
-same raybuffer.
+same raybuffer.  On a CUDA Renderer with the kernels and compaction off
+(the default) the march is one launch of the Renderer's march graph
+(``march_graph.py``) and the host rays go up from pinned memory
+(``ray_init.RayStaging``), so ``render_device`` reads nothing from the
+device and returns before the frame is done; otherwise (the CPU, the plain
+versions, ``compact=True``: a live-ray index) the host drives the march.
 In ARGB mode (``argb_records`` on a world whose columns hold few enough
 voxels, ``argb_on``) the records carry the columns' colors, phase 1 writes
 final colors and phase 2 samples them with no resolve.
@@ -35,6 +39,7 @@ from . import camera as cm
 from . import device as world_device
 from . import device_init, ray_init, raymarch, reproject
 from . import segments as sg
+from .march_graph import MarchGraph
 
 
 class FrameSetup(NamedTuple):
@@ -94,6 +99,12 @@ class Renderer:
     # march is bound by the host's launches, and the index adds some (31 to a
     # gated iteration), so the device time it saves does not reach the frame
     compact: bool = False
+    # the march graph (``march_graph.py``) and the host rays' staging (by
+    # ray count and device); not copied by ``dataclasses.replace``
+    _graph: MarchGraph | None = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+    _staging: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     @classmethod
     def create(cls, lods, config: RenderConfig = RenderConfig(),
@@ -253,10 +264,15 @@ class Renderer:
         on the device as ``config.host_init`` says."""
         f = self.frame_geometry(cam)
         if self.config.host_init:
+            R = self.ray_capacity if R is None else R
+            device = torch.device(self.device if device is None else device)
+            staging = self._staging.get((R, device))
+            if staging is None:
+                staging = self._staging[(R, device)] = ray_init.RayStaging(
+                    R, device)
             static, dda, alive0, _meta = ray_init.init_rays(
                 f.cam_data, f.segs, f.ctxs, self.device_world.dims,
-                fixed_size=self.ray_capacity if R is None else R,
-                device=self.device if device is None else device)
+                fixed_size=R, device=device, staging=staging)
         else:
             static, dda, alive0 = self.init_rays_device(f, R=R, device=device)
         return f._replace(static=static, dda=dda, alive0=alive0)
@@ -265,10 +281,32 @@ class Renderer:
         """Phase 1 of a frame: the raybuffer (R, P) int32 of color indices,
         or in ARGB mode of final colors.  ``compact`` True marches on a
         live-ray index, False marches every ray slot to the end, None does as
-        the Renderer was created (``compact=``); the raybuffer is the same."""
+        the Renderer was created (``compact=``); the raybuffer is the same.
+        On a CUDA Renderer with the kernels and compaction off the march is
+        one launch of the march graph (``march_graph``), with no host read;
+        otherwise the host drives the loop."""
+        compact = self.compact if compact is None else compact
+        if self.device.type == "cuda" and self.kernels and not compact:
+            return self.march_graph(f)
         return self.march_rays(f.static, f.dda, f.alive0, f.cam_data,
                                f.cam_data.position[1], f.iteration_direction,
                                compact)
+
+    def march_graph(self, f: FrameSetup) -> torch.Tensor:
+        """``march`` through the Renderer's ``MarchGraph``: buffers at the
+        frame's ray count, one captured graph a variant (on a CPU device its
+        plain version, the host reading the condition)."""
+        R = f.static.dirs.shape[0]
+        P = max(self.render_wh)
+        g = self._graph
+        if g is None or g.shape != (R, P):
+            g = self._graph = MarchGraph(R, P, self.device_world.dims[1],
+                                         self.solid_bounds, self.device)
+        kw = self.march_kwargs(compact=False)
+        v = g.variant(self._wa, f.cam_data.lod_distances, f.cam_data.far_clip,
+                      kw["dims"], f.iteration_direction, kw["chunk"],
+                      kw["max_chunks"], kw["gated_cells"])
+        return g.march(v, f.static, f.dda, f.alive0, f.cam_data.position[1])
 
     def march_kwargs(self, compact: bool | None = None) -> dict:
         """The keywords of ``raymarch.phase1`` that the Renderer resolves:
@@ -303,7 +341,11 @@ class Renderer:
     def render_device(self, cam: cm.Camera):
         """Render one frame on the device.  Returns (screen (H, W) int32 ARGB
         bits, raybuffer (R, P) int32 of color indices or, in ARGB mode, of
-        colors, frame geometry)."""
+        colors, frame geometry).  On a CUDA Renderer with the kernels and
+        compaction off it returns before the frame is done and reads
+        nothing from the device: the rays go up from pinned memory, the
+        march is one graph launch, phase 2 one kernel launch; the
+        raybuffer is the frame's own."""
         f = self.frame_setup(cam)
         raybuf_idx = self.march(f)
         return self.phase2(f, raybuf_idx), raybuf_idx, (

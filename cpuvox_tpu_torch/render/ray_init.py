@@ -119,11 +119,16 @@ def init_rays_np(cam_data: cm.CameraData, segs: list[sg.SegmentData],
 
 def init_rays(cam_data: cm.CameraData, segs: list[sg.SegmentData],
               ctxs: list[sg.SegmentContext], dims: tuple[int, int, int], *,
-              device, pad_to: int = 128, fixed_size: int | None = None):
+              device, pad_to: int = 128, fixed_size: int | None = None,
+              staging: RayStaging | None = None):
     """``init_rays_np`` as tensors on ``device``:
-    (RayStatic, DDAState, alive0 (R,) bool, meta)."""
+    (RayStatic, DDAState, alive0 (R,) bool, meta).  With ``staging`` (of
+    the frame's R on ``device``) the rays go through its pinned buffers in
+    one copy that does not wait for the card."""
     static, dda, alive, meta = init_rays_np(cam_data, segs, ctxs, dims,
                                             pad_to, fixed_size)
+    if staging is not None:
+        return (*staging.put(static, dda, alive), meta)
 
     def put(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device)
@@ -131,6 +136,76 @@ def init_rays(cam_data: cm.CameraData, segs: list[sg.SegmentData],
     return (RayStatic(**{k: put(v) for k, v in static.items()}),
             DDAState(**{k: put(v) for k, v in dda.items()}),
             put(alive), meta)
+
+
+# the rays' fields, in RayStatic's and DDAState's order, then alive0: name,
+# columns a ray (0 for an (R,) field), dtype
+RAY_FIELDS = (
+    ("dirs", 2, np.float32), ("plane_bottom", 3, np.float32),
+    ("plane_top", 3, np.float32), ("plane_dir", 3, np.float32),
+    ("orig_min", 0, np.int32), ("orig_max", 0, np.int32),
+    ("pos", 2, np.int32), ("tmax", 2, np.float32), ("tdelta", 2, np.float32),
+    ("stp", 2, np.int32), ("ids", 2, np.float32), ("lod", 0, np.int32),
+    ("alive", 0, np.bool_))
+_TORCH = {np.float32: torch.float32, np.int32: torch.int32,
+          np.bool_: torch.bool}
+
+
+class RayStaging:
+    """Host-built rays to the device without a wait: two sets of pinned
+    host memory (plain memory on a CPU device), each holding every field of
+    ``R`` rays at 16-byte aligned offsets.  ``put`` writes a frame's fields
+    into the next set, copies the whole set in one ``non_blocking`` copy to
+    a new device buffer of the frame's own, and returns its views.  Before
+    a set is written again, the host waits on the CUDA event of the copy
+    that last read it (two frames back: with a frame in flight, the one
+    before has been read)."""
+
+    def __init__(self, R: int, device):
+        self.R = R
+        self.device = torch.device(device)
+        self.offsets, at = [], 0
+        for _name, cols, dtype in RAY_FIELDS:
+            self.offsets.append(at)
+            n = R * max(cols, 1) * np.dtype(dtype).itemsize
+            at += -(-n // 16) * 16
+        self.nbytes = at
+        pin = self.device.type == "cuda"
+        self.host = [torch.empty(at, dtype=torch.uint8, pin_memory=pin)
+                     for _ in range(2)]
+        self.events = [None, None]
+        self.next = 0
+
+    def _views(self, buf):
+        out = []
+        for (_name, cols, dtype), at in zip(RAY_FIELDS, self.offsets):
+            n = self.R * max(cols, 1) * np.dtype(dtype).itemsize
+            v = buf[at:at + n].view(_TORCH[dtype])
+            out.append(v.view(self.R, cols) if cols else v)
+        return out
+
+    def put(self, static: dict, dda: dict, alive):
+        """(RayStatic, DDAState, alive0) on the device from ``init_rays_np``'s
+        numpy fields."""
+        k = self.next
+        self.next ^= 1
+        if self.events[k] is not None:
+            self.events[k].synchronize()
+        values = {**static, **dda, "alive": alive}
+        for (name, _cols, dtype), v in zip(RAY_FIELDS, self._views(self.host[k])):
+            x = values[name]
+            if x.dtype != dtype or x.shape != tuple(v.shape):
+                raise ValueError(f"ray field {name}: {x.dtype} {x.shape}, "
+                                 f"expected {np.dtype(dtype)} {tuple(v.shape)}")
+            v.numpy()[...] = x
+        dev = torch.empty(self.nbytes, dtype=torch.uint8, device=self.device)
+        dev.copy_(self.host[k], non_blocking=True)
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            self.events[k] = ev
+        f = self._views(dev)
+        return RayStatic(*f[:6]), DDAState(*f[6:12]), f[12]
 
 
 def _np_next_lod(pos, tmax, tdelta, stp, dirs, vsize):

@@ -6,10 +6,17 @@ it gives the same bits; the CUDA kernels in ``cpuvox_tpu_torch.ops`` are held
 against these functions.  Semantics are the oracle's (DrawSegmentRayJob.cs
 ExecuteRay, re-expressed data-parallel over all rays):
 
-- the per-ray ``while(true)`` march becomes a Python loop over chunks: each
-  chunk rolls the content-independent DDA ``chunk`` cells per ray, fetches the
+- the per-ray ``while(true)`` march becomes a loop over chunks: each chunk
+  rolls the content-independent DDA ``chunk`` cells per ray, fetches the
   visited columns' records, then rasterizes the cells in order (on the card
-  the fetch is inside the rasterize kernel: ``march_ops``);
+  the fetch is inside the rasterize kernel: ``march_ops``).  An iteration
+  is a function of the loop's state (``MarchState``; ``march_step``,
+  ``gated_step``) that reads nothing on the host; the loop's condition,
+  ``any(alive) & (i < max_chunks)``, is ``loop_control``.  The host drives
+  the loop (``march_on_host``, one read of the live count an iteration) on
+  the CPU, with compaction, for a camera batch and on the sharded paths;
+  a CUDA Renderer's default frame runs it as one CUDA graph launch
+  (``render/march_graph.py``);
 - ``return``/``break`` early-outs become per-ray ``alive`` masks;
 - the raybuffer holds int32 color indices into ``WorldArrays.colors``
   (skybox = 0, unwritten = -1), resolved to ARGB once per frame; in ARGB
@@ -32,9 +39,9 @@ fetches and rasterizes every visited cell; the occupancy-gated one
 (``march_gated``, ``raymarch.py:1228-1580``) first reads one occupancy-tile
 row per tile a ray crosses and rasterizes only the cells that may draw.
 
-Both can compact the live rays (``compact``; the reference's staged
-compaction, ``raymarch.py:1085-1090`` and ``:1593-1605``), in this card's
-form: the
+Both can compact the live rays on the host loop (``compact``; the
+reference's staged compaction, ``raymarch.py:1085-1090`` and
+``:1593-1605``), in this card's form: the
 raybuffer and all per-ray state stay in place at full width R, and the roll,
 the gate and the rasterizer work on a live-ray index (ascending
 int32 (Rk,)), rebuilt whenever the live count has fallen to half of Rk or
@@ -808,6 +815,12 @@ def init_raster_state(static: RayStatic, pixel_len: int) -> RasterState:
         alive=torch.ones(R, dtype=torch.bool, device=dev))
 
 
+def reset_raster_state(rs: RasterState, static: RayStatic) -> None:
+    """``init_raster_state``'s values written into ``rs``'s own tensors."""
+    for d, x in zip(rs, init_raster_state(static, rs.raybuf.shape[1])):
+        d.copy_(x)
+
+
 # ------------------------------------------------------------------ march
 
 
@@ -870,9 +883,54 @@ def march_ops(kernels: bool):
     return roll_kernel.roll_chunk_ref, phase1_kernel.rasterize_visits_ref
 
 
-# live-ray compaction since the last reset: index rebuilds, march chunks (or
-# gated iterations) and the ray slots they worked on (mean Rk = slots / chunks)
-compact_stats = {"rebuilds": 0, "chunks": 0, "ray_slots": 0}
+class MarchStats:
+    """Counts of the march since the last reset (``update``): host ints,
+    and device tensors that a march added without reading them (a frame's
+    rewinds, a march graph's iterations), summed on the device in stream
+    order and read only when a count is asked for.  ``dict(stats)`` gives
+    every count."""
+
+    def __init__(self, **counts: int):
+        self._host = dict(counts)
+        self._device: dict[tuple[str, torch.device], torch.Tensor] = {}
+
+    def add(self, **counts) -> None:
+        """Add to the counts: an int on the host, a device tensor on its
+        device (no read)."""
+        for k, v in counts.items():
+            if k not in self._host:
+                raise KeyError(k)
+            if isinstance(v, torch.Tensor):
+                acc = self._device.get((k, v.device))
+                if acc is None:
+                    acc = self._device[(k, v.device)] = torch.zeros(
+                        (), dtype=torch.int64, device=v.device)
+                acc += v
+            else:
+                self._host[k] += v
+
+    def update(self, **counts: int) -> None:
+        """Set counts (0 to reset them)."""
+        for k, v in counts.items():
+            if k not in self._host:
+                raise KeyError(k)
+            self._host[k] = v
+            for (dk, _dev), acc in self._device.items():
+                if dk == k:
+                    acc.zero_()
+
+    def __getitem__(self, key: str) -> int:
+        return self._host[key] + sum(int(acc.item()) for (k, _d), acc
+                                     in self._device.items() if k == key)
+
+    def keys(self):
+        return self._host.keys()
+
+
+# live-ray compaction in the host loop since the last reset: index rebuilds,
+# march chunks (or gated iterations) and the ray slots they worked on (mean
+# Rk = slots / chunks)
+compact_stats = MarchStats(rebuilds=0, chunks=0, ray_slots=0)
 
 
 def live_index(mask, n: int):
@@ -898,41 +956,159 @@ def live_rays(march_alive, index, compact: bool):
     if compact and 0 < n and 2 * n <= width:
         index = live_index(march_alive, n)
         width = n
-        compact_stats["rebuilds"] += 1
+        compact_stats.add(rebuilds=1)
     if n:
-        compact_stats["chunks"] += 1
-        compact_stats["ray_slots"] += width
+        compact_stats.add(chunks=1, ray_slots=width)
     return n, index
+
+
+class MarchArgs(NamedTuple):
+    """What every iteration of a frame's march reads and none writes."""
+
+    wa: WorldArrays
+    static: RayStatic
+    lod_distances: torch.Tensor  # (nld,) f32
+    far_clip: float  # f32-exact
+    dims: tuple
+    consts: dict  # raster_consts
+    iteration_direction: int
+    chunk: int
+    max_chunks: int
+    group_cells: int = 0  # > 0: the gated march's group, else the dense march
+    kernels: bool = True
+
+
+class MarchState(NamedTuple):
+    """The march loop's state, what an iteration reads and writes (the
+    carry of ``raymarch.py:928-957``'s ``while_loop``).  ``alive`` is the
+    roll's liveness folded with the rasterizer's (``alive & rs.alive``), so
+    the loop goes on while any entry is True and ``i`` is under the
+    budget."""
+
+    dda: DDAState
+    alive: torch.Tensor  # (R,) bool
+    rs: RasterState
+    i: torch.Tensor  # () int32: iterations run
+    rewound: torch.Tensor  # () int64: rays rewound (the gated march)
+
+
+def march_state(dda: DDAState, alive0, rs: RasterState) -> MarchState:
+    """The state before the first iteration."""
+    dev = alive0.device
+    return MarchState(dda, alive0 & rs.alive, rs,
+                      torch.zeros((), dtype=torch.int32, device=dev),
+                      torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def state_tensors(s: MarchState) -> list:
+    """The state's tensors in a fixed order."""
+    return [*s.dda, s.alive, *s.rs, s.i, s.rewound]
+
+
+def write_state(dst: MarchState, src: MarchState) -> None:
+    """``src`` written into ``dst``'s own tensors (the in-place form of an
+    iteration, which a CUDA graph replays on fixed buffers).  A field that
+    already is ``dst``'s tensor (a kernel updated it in place) is skipped.
+    Every field of ``src`` is computed before the first copy is made, so no
+    copy overwrites what a later one reads."""
+    for d, x in zip(state_tensors(dst), state_tensors(src)):
+        if d is not x:
+            d.copy_(x)
+
+
+def _advance(alive, rs_alive, i):
+    """An iteration's end: the liveness folded, the counter advanced."""
+    return alive & rs_alive, i + 1
+
+
+def loop_control(alive, rs_alive, i, max_chunks: int):
+    """The loop's control after a body (``raymarch.py:928-930``): the
+    liveness folded, the counter advanced, and the next iteration's
+    condition ``any(alive) & (i < max_chunks)`` as a 0-d bool tensor.  The
+    plain version of ``csrc/march_loop.cu``'s kernel."""
+    alive, i = _advance(alive, rs_alive, i)
+    return alive, i, alive.any() & (i < max_chunks)
+
+
+def march_body(a: MarchArgs, s: MarchState, index=None) -> MarchState:
+    """One dense iteration without its control: roll the live rays (all of
+    them, or those of a live-ray ``index``), then fetch and rasterize their
+    visited cells (one op, which reads the column records itself)."""
+    roll, raster = march_ops(a.kernels)
+    dda, alive, visits = roll(s.dda, s.alive, a.static.dirs, a.lod_distances,
+                              a.far_clip, a.dims, a.chunk, index=index)
+    rs = raster(s.rs, a.wa, visits, a.static, a.consts, a.iteration_direction,
+                index=index)
+    return s._replace(dda=dda, alive=alive, rs=rs)
+
+
+def gated_body(a: MarchArgs, s: MarchState, index=None) -> MarchState:
+    """One gated iteration without its control: roll ``chunk`` steps,
+    rasterize the first ``group_cells`` gated cells of each ray
+    (``gated_group``), rewind the rays that had more (``rewind``) and count
+    them."""
+    roll, raster = march_ops(a.kernels)
+    dda, alive, visits = roll(s.dda, s.alive, a.static.dirs, a.lod_distances,
+                              a.far_clip, a.dims, a.chunk, index=index)
+    rs, g = gated_group(a.wa, visits, s.rs, a.consts, a.group_cells,
+                        index=index)
+    rs = raster(rs, a.wa, g.cells, a.static, a.consts, a.iteration_direction,
+                index=index)
+    dda, needs = rewind(dda, visits, rs, g, index=index)
+    return MarchState(dda, _or_rows(alive, index, needs), rs, s.i,
+                      s.rewound + needs.sum())
+
+
+def _advanced(s: MarchState) -> MarchState:
+    alive, i = _advance(s.alive, s.rs.alive, s.i)
+    return s._replace(alive=alive, i=i)
+
+
+def march_step(a: MarchArgs, s: MarchState, index=None) -> MarchState:
+    """One iteration of the dense march (``raymarch.py:931-957``): the body,
+    then the liveness folded and the counter advanced (``loop_control``
+    without the condition, which the caller checks); no host read."""
+    return _advanced(march_body(a, s, index))
+
+
+def gated_step(a: MarchArgs, s: MarchState, index=None) -> MarchState:
+    """One iteration of the gated march (``raymarch.py:1542-1583``): the
+    body, then the liveness folded and the counter advanced; no host
+    read."""
+    return _advanced(gated_body(a, s, index))
+
+
+def march_on_host(a: MarchArgs, s: MarchState, compact: bool):
+    """The loop driven from the host, for the CPU, compaction, the camera
+    batch and the sharded paths: one read of the live count an iteration
+    (``live_rays``), which also rebuilds the live-ray index.  Returns (the
+    final state, iterations run)."""
+    step = gated_step if a.group_cells else march_step
+    index = None
+    i = 0
+    while i < a.max_chunks:
+        n, index = live_rays(s.alive, index, compact)
+        if not n:
+            break
+        s = step(a, s, index)
+        i += 1
+    return s, i
 
 
 def march(wa: WorldArrays, static: RayStatic, dda: DDAState, alive0,
           rs: RasterState, lod_distances, far_clip, dims, consts,
           iteration_direction: int, chunk: int, max_chunks: int,
           kernels: bool = True, compact: bool = True) -> RasterState:
-    """Full dense phase-1 march (``raymarch.py:895``): per chunk, roll the
-    live rays, then fetch and rasterize their visited cells (one op, which
-    reads the column records itself), until every ray is dead or
-    ``max_chunks`` ran.  One ``.item()`` per chunk: the live count
-    (``live_rays``)."""
-    roll, raster = march_ops(kernels)
-    alive = alive0
-    index = None
-    i = 0
-    while i < max_chunks:
-        march_alive = alive & rs.alive
-        n, index = live_rays(march_alive, index, compact)
-        if not n:
-            break
-        dda, alive, visits = roll(dda, march_alive, static.dirs, lod_distances,
-                                  far_clip, dims, chunk, index=index)
-        rs = raster(rs, wa, visits, static, consts, iteration_direction,
-                    index=index)
-        i += 1
-    return rs
+    """Full dense phase-1 march (``raymarch.py:895``): ``march_step`` until
+    every ray is dead or ``max_chunks`` ran, driven from the host."""
+    a = MarchArgs(wa, static, lod_distances, far_clip, dims, consts,
+                  iteration_direction, chunk, max_chunks, 0, kernels)
+    return march_on_host(a, march_state(dda, alive0, rs), compact)[0].rs
 
 
-# gated iterations run and rays rewound by march_gated since the last reset
-gated_stats = {"iterations": 0, "rewinds": 0}
+# gated iterations run and rays rewound by the gated march since the last
+# reset, on the host loop and in march graphs
+gated_stats = MarchStats(iterations=0, rewinds=0)
 
 
 def _pack_rank(mask, K: int):
@@ -1107,31 +1283,14 @@ def march_gated(wa: WorldArrays, static: RayStatic, dda: DDAState, alive0,
     The live-ray index is rebuilt at the top of an iteration, so after the
     previous one's rewind: a rewound ray was rolled in that iteration, so it
     is in the index that iteration used, and ``alive & rs.alive`` of a ray
-    outside the index never comes back."""
-    roll, raster = march_ops(kernels)
-    alive = alive0
-    rewound = torch.zeros((), dtype=torch.int64, device=alive.device)
-    index = None
-    i = 0
-    while i < max_chunks:
-        march_alive = alive & rs.alive
-        n, index = live_rays(march_alive, index, compact)
-        if not n:
-            break
-        dda, alive, visits = roll(dda, march_alive, static.dirs,
-                                  lod_distances, far_clip, dims, chunk,
-                                  index=index)
-        rs, g = gated_group(wa, visits, rs, consts, group_cells,
-                            index=index)
-        rs = raster(rs, wa, g.cells, static, consts, iteration_direction,
-                    index=index)
-        dda, needs = rewind(dda, visits, rs, g, index=index)
-        alive = _or_rows(alive, index, needs)
-        rewound += needs.sum()
-        i += 1
-    gated_stats["iterations"] += i
-    gated_stats["rewinds"] += int(rewound.item())
-    return rs
+    outside the index never comes back.  The rewinds are counted on the
+    device (``gated_stats`` reads them when asked)."""
+    a = MarchArgs(wa, static, lod_distances, far_clip, dims, consts,
+                  iteration_direction, chunk, max_chunks, group_cells,
+                  kernels)
+    s, i = march_on_host(a, march_state(dda, alive0, rs), compact)
+    gated_stats.add(iterations=i, rewinds=s.rewound)
+    return s.rs
 
 
 def phase1(wa: WorldArrays, static: RayStatic, dda: DDAState, alive0,
@@ -1158,10 +1317,16 @@ def phase1(wa: WorldArrays, static: RayStatic, dda: DDAState, alive0,
                          compact=compact)
     else:
         rs = march(*args, kernels=kernels, compact=compact)
-    # deferred WriteSkybox (:699-716): unwritten pixels inside the range -> 0
-    pix = torch.arange(pixel_len, dtype=torch.int32, device=dev)[None, :]
+    return fill_skybox(wa, static, rs.raybuf)
+
+
+def fill_skybox(wa: WorldArrays, static: RayStatic, rb):
+    """The deferred WriteSkybox (:699-716) on a marched raybuffer, into a
+    new tensor: unwritten texels inside the ray's pixel range -> the skybox
+    (0, or in ARGB mode its color; written texels get the alpha MSB back),
+    outside it -> magenta in ARGB mode."""
+    pix = torch.arange(rb.shape[1], dtype=torch.int32, device=rb.device)[None, :]
     in_range = (pix >= static.orig_min[:, None]) & (pix <= static.orig_max[:, None])
-    rb = rs.raybuf
     if wa.max_col_colors:
         # ARGB mode (``raymarch.py:1611-1618``): written texels get the alpha
         # MSB back; unwritten in range -> the skybox color, out of range ->

@@ -242,7 +242,8 @@ def test_flythrough_record(monkeypatch, capsys, magenta):
         lambda cls, lods, cfg, **kw: create(cls, lods, cfg, device="cpu",
                                             **kw)))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
-    metrics = dict(fps=40.0, frame_ms_p50=25.0, ray_columns_per_sec=1e5,
+    metrics = dict(fps=40.0, fps_seq=40.0, fps_pipe=50.0, frame_ms_p50=25.0,
+                   ray_columns_per_sec=1e5,
                    world_voxels_lod0=10, world_voxels=60, n_frames=3,
                    frame_gpu_ms_p50=24.0, magenta_pixels=magenta)
     monkeypatch.setattr(harness, "run_flythrough",
@@ -255,9 +256,13 @@ def test_flythrough_record(monkeypatch, capsys, magenta):
         return
     (rec,) = entry.run_flythrough_mode(mode, knobs)
     assert capsys.readouterr().out == ""  # the gate passed silently
+    # the sequential and the pipelined pass, as bench.py:406-413 records them
+    assert isinstance(rec["fps_seq"], float)
+    assert isinstance(rec["fps_pipe"], float)
     assert rec == {
         "metric": "fps_terrain2048_64x48", "value": 40.0, "unit": "fps",
-        "vs_baseline": 0.6667, "fps_seq": 40.0, "frame_ms_p50": 25.0,
+        "vs_baseline": 0.6667, "fps_seq": 40.0, "fps_pipe": 50.0,
+        "frame_ms_p50": 25.0,
         "ray_columns_per_sec": 100000, "world_voxels_lod0": 10,
         "world_voxels_all_lods": 60, "n_frames": 3, "frame_gpu_ms_p50": 24.0,
         "magenta_pixels": 0}
