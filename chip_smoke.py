@@ -76,13 +76,17 @@ non-zero (no phase catches its own failure):
    the kernels and the plain path, its rays past LOD 7;
 9. the camera-batch rollout (``parallel/batch.py``, ``bench.py:203-251``'s
    world and 64-camera steps at 256x256, both iteration directions): one
-   step through the kernels == through the plain versions == each
-   camera's single-camera frame; 8 cameras in ARGB mode and 8 on a gated
-   256x128x256 layered world against their single frames; the batched
-   phase-2 kernel and a launch of the single-camera kernel a camera, each
-   against the plain phase 2 camera by camera, timed side by side; cams/s
-   with compaction off and on in turns, launches a step, a step's device
-   busy share;
+   step through the batch march graphs (a direction group's rays built on
+   the card in one pass, one graph launch, one phase-2 launch) == the
+   host-loop batch == the plain versions == each camera's single-camera
+   frame; 8 cameras in ARGB mode and 8 on a gated 256x128x256 layered
+   world through the graphs against their single frames; 4 warm steps
+   queued with no host read (``set_sync_debug_mode("error")``), no capture
+   and no pool growth; the batched phase-2 kernel and a launch of the
+   single-camera kernel a camera, each against the plain phase 2 camera by
+   camera, timed side by side; cams/s on the graphs and on the host loop in
+   turns, launches and iterations a step, where a step's time goes, a
+   step's device busy share;
 10. the dynamic worlds (``world/dynamic.py``, ``bench.py:254-282``): the
    512x128x512 surface world rebuilt on the card == the same build on the
    CPU, every field, with ``exact_lod1`` off and on; a 1280x720 frame
@@ -123,8 +127,9 @@ non-zero (no phase catches its own failure):
    (c) ``render_frame_sharded`` on both worlds == the unsharded frame,
    launches a frame, frame ms sharded and unsharded in turns; (d) the
    composed mode, one frame on each; (e) the rollout's 64 cameras at
-   256x256 camera-sharded == the unsharded batch, cams/s both ways in
-   turns.  In one more run of (a), (b), (c), (d) and (e) each, the four
+   256x256 camera-sharded, each block through its device's batch march
+   graph, == the unsharded batch, cams/s both ways in turns (its held run
+   on the host loop).  In one more run of (a), (b), (c), (d) and (e) each, the four
    kernels are held against their plain versions on the same inputs, at
    the shapes the sharded path gives them (a shard's slice of the rays,
    the gathered raybuffer, a camera block): every phase-2 call, and each
@@ -1175,20 +1180,27 @@ def rollout_work(renderer, args):
 def check_rollout(card: str, stats: dict) -> dict:
     """The RL-rollout mode (``parallel/batch.py``): ``bench.py``'s rollout
     world and 64-camera steps at 256x256 (``bench/harness.py``).  The batch
-    through the kernels == the batch through the plain versions == each
-    camera's single-camera frame; 8 cameras in ARGB mode and 8 on a gated
-    layered world against their single frames; both phase-2 variants
-    against the plain phase 2 camera by camera, timed side by side; then
-    cams/s compacted and not in turns, launches a step, and a step's device
-    busy share.  The rollout path's kernel counts are set to 0 just before
-    its first timed run and read just after it."""
+    through the batch march graphs (the Renderer's default: a direction
+    group's rays built in one pass on the card, one graph launch and one
+    phase-2 launch a group) == the host-loop batch (compaction on) == the
+    batch through the plain versions == each camera's single-camera frame;
+    8 cameras in ARGB mode and 8 on a gated layered world through the
+    graphs against their single frames; 4 warm steps queued under
+    ``set_sync_debug_mode("error")``, the captures and ``memory_reserved``
+    unchanged over them; both phase-2 variants against the plain phase 2
+    camera by camera, timed side by side; then cams/s on the graphs and on
+    the host loop in turns, launches and iterations a step, where a step's
+    time goes, and a step's device busy share, alone and 4 steps queued.
+    The rollout path's kernel counts are set to 0 just before its first
+    timed run (the graph route) and read just after it."""
     from cpuvox_tpu_torch.bench import harness
     from cpuvox_tpu_torch.bench.breakdown import device_activities, union_us
     from cpuvox_tpu_torch.config import RenderConfig
     from cpuvox_tpu_torch.models import procedural
-    from cpuvox_tpu_torch.ops import phase1_kernel, roll_kernel
+    from cpuvox_tpu_torch.ops import march_loop
     from cpuvox_tpu_torch.ops import reproject_kernel as rk
     from cpuvox_tpu_torch.parallel import batch
+    from cpuvox_tpu_torch.render import device_init
     from cpuvox_tpu_torch.render.frame import Renderer
 
     t0 = time.perf_counter()
@@ -1208,48 +1220,109 @@ def check_rollout(card: str, stats: dict) -> dict:
     if not 0 < n_up < N_ROLLOUT_CAMS:
         raise AssertionError("the rollout step holds one iteration direction")
 
-    # the step three ways
+    # the step four ways
     t0 = time.perf_counter()
     kb = check_batch_singles(r, cams, "rollout", {})
     torch.cuda.synchronize()
     t_k = time.perf_counter() - t0
+    buckets = sorted(k[0] // r.ray_capacity for k in r._batch_graphs)
+    want = sorted({batch.bucket_size(n, N_ROLLOUT_CAMS)
+                   for n in (n_up, N_ROLLOUT_CAMS - n_up)})
+    if buckets != want:
+        raise AssertionError(f"[rollout] batch graphs at buckets {buckets}, "
+                             f"not {want}")
+    host = dataclasses.replace(r, compact=True)
+    t0 = time.perf_counter()
+    hb = batch.render_camera_batch(host, cams)
+    torch.cuda.synchronize()
+    t_h = time.perf_counter() - t0
     plain = dataclasses.replace(r, config=dataclasses.replace(
         r.config, backend="xla"), compact=True)
     t0 = time.perf_counter()
     pb = batch.render_camera_batch(plain, cams)
     torch.cuda.synchronize()
     t_p = time.perf_counter() - t0
+    if host._batch_graphs or plain._batch_graphs:
+        raise AssertionError("[rollout] a host-loop batch took a graph")
+    compare("rollout batch, host loop", [kb], [hb], {})
     compare("rollout batch, plain", [kb], [pb], {})
     log(f"[rollout] one step of {N_ROLLOUT_CAMS} cameras: the batch through "
-        f"the kernels == the batch through the plain versions (compacted, "
-        f"{t_p:.1f} s) == the {N_ROLLOUT_CAMS} single-camera kernel frames "
-        f"({t_k:.2f} s with the batch, cold), index mode, 0 pixels differ, "
-        "0 magenta")
+        f"the batch march graphs (buckets of {buckets} cameras, "
+        f"{[b * r.ray_capacity for b in buckets]} rays) == the "
+        f"host-loop batch (compacted, {t_h:.2f} s) == the batch through the "
+        f"plain versions (compacted, {t_p:.1f} s) == the {N_ROLLOUT_CAMS} "
+        f"single-camera graph frames ({t_k:.2f} s with the batch, cold), "
+        "index mode, 0 pixels differ, 0 magenta")
+    del host, plain, hb, pb
 
     ra = harness.rollout_renderer(ROLLOUT_WH, argb_records=True)
     if not ra.argb_on:
         raise AssertionError("the rollout world did not engage ARGB mode")
     check_batch_singles(ra, cams[:8], "rollout ARGB", {})
     mcc = ra.device_world.max_col_colors
+    if not ra._batch_graphs:
+        raise AssertionError("[rollout] the ARGB batch took no graph")
     del ra
     gdims = (256, 128, 256)
     rg = Renderer.create(
         procedural.layered_world(dims=gdims, seed=99, lod_levels=6),
         RenderConfig(width=ROLLOUT_WH[0], height=ROLLOUT_WH[1],
-                     occupancy_gate="on"), device=r.device, compact=True)
+                     occupancy_gate="on"), device=r.device)
     if not rg.occupancy_on:
         raise AssertionError("the layered world's gate resolved off")
     gcams = harness.rollout_cameras(2, 8, ROLLOUT_WH, gdims)
     check_batch_singles(rg, gcams, "rollout gated", {})
+    if not rg._batch_graphs:
+        raise AssertionError("[rollout] the gated batch took no graph")
     log(f"[rollout] 8 cameras in ARGB mode (max_col_colors {mcc}) and 8 "
         f"on a gated layered {gdims} world (max_runs "
-        f"{rg.device_world.max_runs}): each batch == its single-camera "
-        "kernel frames, 0 pixels differ, 0 magenta")
+        f"{rg.device_world.max_runs}), through the batch march graphs: each "
+        "batch == its single-camera graph frames, 0 pixels differ, 0 magenta")
     del rg
+
+    # a warm step reads nothing from the card, and over 4 steps after it
+    # nothing is captured and the pool does not grow
+    steps = [harness.rollout_cameras(20 + s, N_ROLLOUT_CAMS, ROLLOUT_WH,
+                                     dw.dims) for s in range(5)]
+
+    def n_captures():
+        return sum(len(g.captures) for g in r._batch_graphs.values())
+
+    batch.render_camera_batch(r, steps[0])
+    torch.cuda.synchronize()
+    caps, reserved = [n_captures()], [torch.cuda.memory_reserved(r.device)]
+    march_loop.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for st in steps[1:]:
+            batch.render_camera_batch(r, st)
+            caps.append(n_captures())
+            reserved.append(torch.cuda.memory_reserved(r.device))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    it_steps = march_loop.graph_stats["iterations"] / 4
+    g_steps = march_loop.graph_stats["launches"]
+    if len(set(caps)) != 1 or len(set(reserved)) != 1 or g_steps != 8:
+        raise AssertionError(f"[rollout] over 4 warm steps: captures {caps}, "
+                             f"memory_reserved {reserved}, {g_steps} graph "
+                             "launches")
+    captured = "; ".join(
+        f"{c['direction']:+d} at {k[0]} rays: capture {c['capture_ms']:.2f} "
+        f"ms, instantiate {c['instantiate_ms']:.2f} ms, pool "
+        f"+{c['pool_bytes']} B" for k, g in r._batch_graphs.items()
+        for c in g.captures)
+    log(f"[rollout] 4 warm steps, queued back to back under "
+        f"set_sync_debug_mode('error'): no host read; {g_steps} graph "
+        f"launches, {it_steps:.2f} iterations a step (device counter); "
+        f"captures {caps[0]} and memory_reserved {reserved[0]} bytes after "
+        f"the warm step, unchanged after each of the 4 (the captures: "
+        f"{captured}) ({card})")
 
     # phase 2 of the looking-down group, both variants
     group = [f for f in frames if f.iteration_direction > 0]
-    args = batch.phase2_group_args(r, batch.march_group(r, group, 1), group)
+    args = batch.phase2_group_args(
+        r, batch.march_group(r, group, 1, len(group)), group)
     want = rk.reproject_screens_ref(*args)
     compare("reproject_screens", [rk.reproject_screens(*args)], [want], stats)
     compare("reproject_screen", [rk.reproject_screens_per_camera(*args)],
@@ -1295,37 +1368,38 @@ def check_rollout(card: str, stats: dict) -> dict:
         f"({p2['bound_by']}: {p2['bytes']} B); both == plain camera by "
         f"camera, 0 pixels differ ({card})")
 
-    # the timed runs: compaction off (the Renderer's default, the path's
-    # launch counts) and on, in turns
+    # the timed runs, in turns: the batch march graphs (the Renderer's
+    # default, the path's launch counts) and the host loop (compaction on)
     runs = {False: [], True: []}
     for k, compact in enumerate((False, True, True, False)):
         rr = dataclasses.replace(r, compact=compact)
         if k == 0:
-            for m in (roll_kernel, phase1_kernel, rk):
-                m.launches = 0
-            rk.screens_launches = 0
+            march_loop.reset_launches()
         m = harness.run_rollout(rr, N_ROLLOUT_CAMS, log=log)
         if k == 0:
-            launches = {"roll_chunk": roll_kernel.launches,
-                        "rasterize_visits": phase1_kernel.launches,
-                        "reproject_screen": rk.launches,
-                        "reproject_screens": rk.screens_launches}
+            launches = march_loop.kernel_launches()
+            graph_launches = march_loop.graph_stats["launches"]
         if m["magenta_pixels"]:
             raise AssertionError("[rollout] magenta pixels in the timed run")
         runs[compact].append(m)
-    if min(launches["roll_chunk"], launches["rasterize_visits"],
-           launches["reproject_screens"]) <= 0 or launches["reproject_screen"]:
-        raise AssertionError(f"[rollout] launches {launches}: a kernel of "
-                             "the path did not run, or phase 2 ran a camera "
-                             "at a time")
+    if (min(launches["roll_chunk"], launches["rasterize_visits"],
+            launches["reproject_screens"], launches["march_loop"]) <= 0
+            or launches["reproject_screen"] or graph_launches != 2 * 5):
+        raise AssertionError(f"[rollout] launches {launches}, "
+                             f"{graph_launches} graph launches in 5 steps: a "
+                             "kernel of the path did not run, phase 2 ran a "
+                             "camera at a time, or a group left the graph")
     cps = {c: [m["cams_per_sec"] for m in v] for c, v in runs.items()}
     per_step = runs[False][0]["launches_per_step"]
 
-    # a step's device busy share: the union of its device activities under
-    # the profiler over the same step's unprofiled wall; and where a step's
-    # host time goes, each stage synced
+    # where a step's host time goes, each stage synced, and the card's time
+    # for the marches and phase 2 (CUDA events around each, its inputs
+    # ready); a step's device busy share: that time over the step's wall,
+    # and the union of its device activities under the profiler over the
+    # same step's unprofiled wall, synced alone and 4 steps queued
     step = harness.rollout_cameras(9, N_ROLLOUT_CAMS, ROLLOUT_WH, dw.dims)
-    walls = []
+    R1, dims = r.ray_capacity, dw.dims
+    walls, card_ms = [], []
     stages = {"setup": [], "ray init": [], "march": [], "phase 2": []}
     for _ in range(3):
         torch.cuda.synchronize()
@@ -1337,49 +1411,90 @@ def check_rollout(card: str, stats: dict) -> dict:
         t0 = time.perf_counter()
         sframes = [r.frame_geometry(c) for c in step]
         t["setup"] += time.perf_counter() - t0
+        on_card = 0.0
         for d in (1, -1):
             g = [f for f in sframes if f.iteration_direction == d]
             t0 = time.perf_counter()
-            rays = batch._group_rays_host(r, g)
+            p = device_init.stack_frame_params(
+                [device_init.build_frame_params(f.cam_data, f.segs, f.ctxs)
+                 for f in g], batch.bucket_size(len(g), len(step)))
+            rays = device_init.init_rays_batch(p, dims, R1, r.device)
             torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
             t1 = time.perf_counter()
-            cam_y = np.repeat(np.asarray([f.cam_data.position[1] for f in g],
-                                         np.float32), r.ray_capacity)
-            rb = r.march_rays(*rays, g[0].cam_data, cam_y, d)
+            ev[0].record()
+            rb = r.march_batch_graph(*rays, g[0].cam_data, d)
+            ev[1].record()
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            batch.phase2_group(r, rb, g)
+            ev[2].record()
+            batch.phase2_group(r, rb[:len(g) * R1], g)
+            ev[3].record()
             torch.cuda.synchronize()
             t["ray init"] += t1 - t0
             t["march"] += t2 - t1
             t["phase 2"] += time.perf_counter() - t2
+            on_card += ev[0].elapsed_time(ev[1]) + ev[2].elapsed_time(ev[3])
         for k, v in t.items():
             stages[k].append(v * 1e3)
-    log(f"[rollout] where a step's time goes (each stage synced, medians of "
-        f"3): " + ", ".join(f"{k} {np.median(v):.3f} ms"
-                             for k, v in stages.items())
-        + f"; whole step {np.median(walls):.3f} ms ({card})")
+        card_ms.append(on_card)
+    log(f"[rollout] where a step's time goes on the graph route (each stage "
+        f"synced, medians of 3): " + ", ".join(
+            f"{k} {np.median(v):.3f} ms" for k, v in stages.items())
+        + f" (ray init: the group's parameters stacked and init_rays_batch); "
+        f"whole step {np.median(walls):.3f} ms ({card})")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        batch.render_camera_batch(r, step)
-        torch.cuda.synchronize()
-    dev = device_activities(prof)
-    if not dev:
-        raise AssertionError("the profiler recorded no device activity")
-    busy_ms = union_us((a, b) for _n, a, b in dev) / 1e3
+    queued = steps[1:]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for st in queued:
+        batch.render_camera_batch(r, st)
+    torch.cuda.synchronize()
+    queued_ms = (time.perf_counter() - t0) * 1e3
+    busy = {}
+    for what, work in (("step", [step]), ("queued", queued)):
+        with torch.profiler.profile(activities=acts) as prof:
+            for st in work:
+                batch.render_camera_batch(r, st)
+            torch.cuda.synchronize()
+        dev = device_activities(prof)
+        if not dev:
+            raise AssertionError("the profiler recorded no device activity")
+        busy[what] = (union_us((a, b) for _n, a, b in dev) / 1e3, len(dev))
+    busy_ms, n_dev = busy["step"]
     wall_ms = float(np.median(walls))
+    q_busy = busy["queued"][0]
+    ev_ms = float(np.median(card_ms))
+    # the profiler can miss a graph's kernels (PERF.md, open questions):
+    # under half the events' time, its share is not the card's
+    traced = busy_ms >= 0.5 * ev_ms
+    prof_txt = (
+        f"under the profiler a step's device busy {busy_ms:.3f} ms of "
+        f"{wall_ms:.3f} ms wall: busy share {busy_ms / wall_ms:.4f} ({n_dev} "
+        f"device activities); 4 steps queued back to back: device busy "
+        f"{q_busy:.3f} ms of {queued_ms:.3f} ms wall, busy share "
+        f"{q_busy / queued_ms:.4f}" if traced else
+        f"the profiler recorded {busy_ms:.3f} ms of device activity in a "
+        f"step ({n_dev} activities), under half the events' time: it missed "
+        "the graphs' kernels, and its busy share is not reported")
     log(f"[rollout] cams/s at {N_ROLLOUT_CAMS} cameras, 4 steps a run, runs "
-        f"in turns (off, on, on, off): compaction off "
-        f"{cps[False][0]:.2f}, {cps[False][1]:.2f}; on {cps[True][0]:.2f}, "
-        f"{cps[True][1]:.2f}; launches a step (off): roll "
-        f"{per_step['roll_chunk']:.1f}, rasterize "
-        f"{per_step['rasterize_visits']:.1f}, phase 2 "
-        f"{per_step['reproject_screens']:.1f}; a step's device busy "
-        f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall: busy share "
-        f"{busy_ms / wall_ms:.4f} ({len(dev)} device activities) ({card})")
+        f"in turns (graph, host loop, host loop, graph): batch march graphs "
+        f"{cps[False][0]:.2f}, {cps[False][1]:.2f}; host loop (compacted) "
+        f"{cps[True][0]:.2f}, {cps[True][1]:.2f}; launches a step (graph): "
+        f"roll {per_step['roll_chunk']:.1f}, rasterize "
+        f"{per_step['rasterize_visits']:.1f}, loop control "
+        f"{per_step['march_loop']:.1f}, phase 2 "
+        f"{per_step['reproject_screens']:.1f} (iterations from the device "
+        f"counter); the card's time a step for the marches and phase 2 "
+        f"(events, the init's excluded) {ev_ms:.3f} ms of a {wall_ms:.3f} ms "
+        f"step: busy share {ev_ms / wall_ms:.4f}; {prof_txt} ({card})")
     return {"launches": launches, "cams_per_sec": cps, "phase2": p2,
-            "busy_share": busy_ms / wall_ms, "step_ms": wall_ms,
+            "busy_share": ev_ms / wall_ms,
+            "busy_share_profiler": busy_ms / wall_ms if traced else None,
+            "busy_share_queued": q_busy / queued_ms if traced else None,
+            "card_ms_per_step": ev_ms, "step_ms": wall_ms,
+            "iterations_per_step": it_steps,
             "stages_ms": {k: float(np.median(v)) for k, v in stages.items()}}
 
 
@@ -2203,10 +2318,12 @@ def check_ray_sharded(tag: str, plain, rmesh, where: str, tally: dict,
 
 
 def check_camera_sharded(rmesh, where: str, tally: dict, stats: dict) -> None:
-    """(e) the rollout's 64 cameras at 256x256 over ``rmesh``: the batch ==
-    the unsharded batch, then once more with its kernel calls (each camera
-    block's march and phase 2) held against their plain versions, and
-    cams/s both ways in turns."""
+    """(e) the rollout's 64 cameras at 256x256 over ``rmesh``, each camera
+    block bucketed and marched through its device's batch march graph: the
+    batch == the unsharded batch; then once more on the host loop
+    (compaction on) with its kernel calls (each camera block's march and
+    phase 2) held against their plain versions; cams/s both ways in
+    turns."""
     from cpuvox_tpu_torch.bench import harness
     from cpuvox_tpu_torch.parallel.batch import render_camera_batch
 
@@ -2215,10 +2332,15 @@ def check_camera_sharded(rmesh, where: str, tally: dict, stats: dict) -> None:
     cams = harness.rollout_cameras(1, N_ROLLOUT_CAMS, ROLLOUT_WH, dims)
     got = shard_counts_run(tally, lambda: render_camera_batch(r, cams,
                                                               rmesh=rmesh))
+    blocks = sorted({(k[0] // r.ray_capacity, str(k[2]))
+                     for k in r._batch_graphs})
+    if not blocks:
+        raise AssertionError("[shard] (e) the camera blocks took no graph")
     compare_screens("[shard] rollout camera-sharded", [got],
                     [render_camera_batch(r, cams)], stats)
-    held_run(f"(e) rollout camera-sharded over {where}",
-             lambda: render_camera_batch(r, cams, rmesh=rmesh), stats)
+    host = dataclasses.replace(r, compact=True)
+    held_run(f"(e) rollout camera-sharded over {where} (host loop)",
+             lambda: render_camera_batch(host, cams, rmesh=rmesh), stats)
     steps = [harness.rollout_cameras(2 + s, N_ROLLOUT_CAMS, ROLLOUT_WH, dims)
              for s in range(SHARD_ROLLOUT_STEPS)]
 
@@ -2231,7 +2353,8 @@ def check_camera_sharded(rmesh, where: str, tally: dict, stats: dict) -> None:
     n = N_ROLLOUT_CAMS * SHARD_ROLLOUT_STEPS
     cps = {k: [n / (t / 1e3) for t in v] for k, v in ms.items()}
     log(f"[shard] (e) rollout{N_ROLLOUT_CAMS} {ROLLOUT_WH[0]}x"
-        f"{ROLLOUT_WH[1]} over {where}: the camera-sharded batch == the "
+        f"{ROLLOUT_WH[1]} over {where}: the camera-sharded batch through "
+        f"the batch march graphs (buckets, device: {blocks}) == the "
         f"unsharded batch, 0 pixels differ; cams/s in turns ({n} cameras "
         f"a run): sharded {np.round(cps['sharded'], 2).tolist()}, unsharded "
         f"{np.round(cps['unsharded'], 2).tolist()} ({card_line()})")
@@ -2981,8 +3104,10 @@ def main() -> int:
         "ms": lk["ms"], "device_ms": lk["device_ms"],
         "plain_ms": lk["plain_ms"], "bound_ms": lk["bound_ms"],
         "bound_by": lk["bound_by"], "library_ms": lk["library_ms"],
-        "launches_by_path": {f"loop {p}": loop[p]["launches"]["march_loop"]
-                             for p in LOOP_PATHS}})
+        "launches_by_path": {
+            **{f"loop {p}": loop[p]["launches"]["march_loop"]
+               for p in LOOP_PATHS},
+            "rollout64_256x256": rollout["launches"]["march_loop"]}})
     for p in LOOP_PATHS:
         v = loop[p]
         log(f"[summary] [loop] {p}: fps {v['fps_seq']:.3f} sequential, "
@@ -2997,9 +3122,13 @@ def main() -> int:
                 f"{c['direction']:+d} {c['capture_ms']:.2f} / "
                 f"{c['instantiate_ms']:.2f}, {c['pool_bytes']}"
                 for c in v["captures"]) + f" ({card})")
-    log(f"[summary] rollout cams/s (compaction off, on): "
+    log(f"[summary] rollout cams/s (batch march graphs, host loop): "
         f"{rollout['cams_per_sec'][False]}, {rollout['cams_per_sec'][True]}, "
-        f"busy share {rollout['busy_share']:.4f}; dynamic fps exact_lod1 "
+        f"the card's time {rollout['card_ms_per_step']:.3f} ms of a "
+        f"{rollout['step_ms']:.3f} ms step (busy share "
+        f"{rollout['busy_share']:.4f}; by the profiler "
+        f"{rollout['busy_share_profiler']} a step, "
+        f"{rollout['busy_share_queued']} queued); dynamic fps exact_lod1 "
         f"False {dynamic[False]['fps']:.3f}, True {dynamic[True]['fps']:.3f} "
         f"({card})")
     conv, inter = mesh["convert"], mesh["interactive"]

@@ -1,19 +1,34 @@
 """Batched multi-camera rendering, the RL-rollout mode
-(``cpuvox_tpu/parallel/batch.py:103-193``).
+(``cpuvox_tpu/parallel/batch.py:56-193``).
 
 The march is ray-agnostic, so a batch of cameras is more rays: each camera
 gets a contiguous block of ``Renderer.ray_capacity`` (R1) rays, the rays of
 all cameras that iterate the same way march together in one phase 1 (a
-camera height a ray, ``raymarch.phase1``'s ``cam_y``), and phase 2 reads each
-camera's block of the raybuffer.  Cameras split by iteration direction (the
-sign of the pitch), so a batch is at most two marches.
+camera height a ray), and phase 2 reads each camera's block of the
+raybuffer.  Cameras split by iteration direction (the sign of the pitch),
+so a batch is at most two marches.
 
-Unlike the JAX package, nothing is padded to a bucket of cameras: that kept
-jit signatures stable across steps, and eager torch has none.  Over a
-``parallel.mesh.RenderMesh`` (``rmesh``) a group's cameras split in
-contiguous blocks over the mesh's devices, which may be uneven: each device
-marches its block against its replica of the world and runs one phase-2
-launch for it.
+A direction group is the JAX batch's device program (``_batch_frame_fn``):
+
+- its cameras' parameters go up in one copy and its rays are built on the
+  device in one vectorised pass (``device_init.init_rays_batch``), whatever
+  ``host_init`` says, as the JAX batch does;
+- the group is padded to a bucket of cameras with no rays, the next power
+  of two at or above its size, capped at the batch's (``batch.py:138-163``),
+  so that a new pitch split finds its march already built;
+- on the graph route (``Renderer.graph_route``: a CUDA Renderer with the
+  kernels on and compaction off) the march is one launch of a batch march
+  graph (``Renderer.march_batch_graph``); the CPU, the plain versions and
+  ``compact=True`` march on the host loop (``Renderer.march_rays``);
+- phase 2 runs over the real cameras only, one launch
+  (``reproject_kernel.reproject_screens``).
+
+On the graph route nothing reads the device, so the host sets up the next
+step while the card runs this one.  Over a ``parallel.mesh.RenderMesh``
+(``rmesh``) a group's cameras split in contiguous blocks over the mesh's
+devices, which may be uneven, each block bucketed on its own: each device
+runs the same program on its block against its replica of the world, the
+host queuing every block before it waits for any.
 """
 from __future__ import annotations
 
@@ -21,54 +36,40 @@ import numpy as np
 import torch
 
 from cpuvox_tpu_torch.parallel.mesh import on_device, shard_bounds
-from cpuvox_tpu_torch.render import ray_init
-from cpuvox_tpu_torch.render.raymarch import DDAState, RayStatic
-
-# fields of the host ray init, in the order they are copied to the card
-_STATIC = RayStatic._fields
-_DDA = DDAState._fields
+from cpuvox_tpu_torch.render import device_init
 
 
-def _group_rays_host(renderer, frames, device=None):
-    """Every camera's rays built with numpy on the host, each field of the
-    group copied to the card once (13 copies a group, not 13 a camera), to
-    ``device`` (the Renderer's for None)."""
-    device = renderer.device if device is None else device
-    dims, R1 = renderer.device_world.dims, renderer.ray_capacity
-    parts = [ray_init.init_rays_np(f.cam_data, f.segs, f.ctxs, dims,
-                                   fixed_size=R1)[:3] for f in frames]
-
-    def put(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
-
-    static = RayStatic(**{k: put(np.concatenate([p[0][k] for p in parts]))
-                          for k in _STATIC})
-    dda = DDAState(**{k: put(np.concatenate([p[1][k] for p in parts]))
-                      for k in _DDA})
-    return static, dda, put(np.concatenate([p[2] for p in parts]))
+def bucket_size(n: int, cap: int) -> int:
+    """The cameras a group of ``n`` is padded to (``batch.py:142-146``): the
+    next power of two at or above ``n``, at most ``cap`` (the batch's)."""
+    bucket = 1
+    while bucket < n:
+        bucket *= 2
+    return min(bucket, cap)
 
 
-def _group_rays_device(renderer, frames, device=None):
-    """Every camera's rays built on the device (``host_init=False``), a
-    camera at a time, then joined."""
-    parts = [renderer.init_rays_device(f, device=device) for f in frames]
-    static = RayStatic(*(torch.cat(x) for x in zip(*(p[0] for p in parts))))
-    dda = DDAState(*(torch.cat(x) for x in zip(*(p[1] for p in parts))))
-    return static, dda, torch.cat([p[2] for p in parts])
-
-
-def march_group(renderer, frames, direction: int, wa=None, device=None):
-    """Phase 1 of a direction group's cameras in one march: their rays in
-    consecutive blocks of R1, each ray with its camera's height; returns
-    the group's (B * R1, P) raybuffer.  On ``device`` against ``wa``, a
-    replica of the Renderer's world there (the Renderer's own for None)."""
-    init = (_group_rays_host if renderer.config.host_init
-            else _group_rays_device)
-    static, dda, alive0 = init(renderer, frames, device)
-    cam_y = np.repeat(np.asarray([f.cam_data.position[1] for f in frames],
-                                 np.float32), renderer.ray_capacity)
-    return renderer.march_rays(static, dda, alive0, frames[0].cam_data, cam_y,
-                               direction, wa=wa)
+def march_group(renderer, frames, direction: int, bucket: int, wa=None,
+                device=None):
+    """Phase 1 of a direction group's cameras in one march, padded to
+    ``bucket`` cameras: the (bucket * R1, P) raybuffer, camera b's rows in
+    block b, the padded cameras' last.  The rays are built in one pass on
+    ``device`` (the Renderer's for None), then marched against ``wa`` (a
+    replica of the Renderer's world there; its own for None) through a
+    batch march graph on the graph route, else on the host loop."""
+    device = torch.device(renderer.device if device is None else device)
+    R1 = renderer.ray_capacity
+    p = device_init.stack_frame_params(
+        [device_init.build_frame_params(f.cam_data, f.segs, f.ctxs)
+         for f in frames], bucket)
+    static, dda, alive0, cam_y, cam_y_norm = device_init.init_rays_batch(
+        p, renderer.device_world.dims, R1, device)
+    if renderer.graph_route(device):
+        return renderer.march_batch_graph(static, dda, alive0, cam_y,
+                                          cam_y_norm, frames[0].cam_data,
+                                          direction, wa)
+    return renderer.march_rays(static, dda, alive0, frames[0].cam_data,
+                               np.repeat(p.cam_pos[:, 1], R1), direction,
+                               wa=wa)
 
 
 def phase2_group_args(renderer, raybuf, frames, wa=None) -> tuple:
@@ -103,12 +104,15 @@ def render_camera_batch(renderer, cams, rmesh=None) -> torch.Tensor:
     Each camera is set up with the Renderer's own setup; the LOD distances
     and the far clip are the first camera's (``Renderer.setup_camera`` keeps
     them), as in the reference (``batch.py:82-83``).  The march is dense or
-    gated and compacted or not as the Renderer resolves it, in index or ARGB
-    mode.  With ``rmesh`` each direction group's cameras split in contiguous
-    blocks over the devices (``batch.py:103-112``), each block marched and
-    reprojected on its device against a replica of the world."""
+    gated as the Renderer resolves it, in index or ARGB mode, through a
+    batch march graph or on the host loop as ``Renderer.graph_route`` says.
+    With ``rmesh`` each direction group's cameras split in contiguous
+    blocks over the devices (``batch.py:103-112``), each block bucketed,
+    marched and reprojected on its device against a replica of the
+    world."""
     frames = [renderer.frame_geometry(cam) for cam in cams]
     devices = [renderer.device] if rmesh is None else rmesh.devices
+    R1 = renderer.ray_capacity
     out = [None] * len(cams)
     for direction in (1, -1):
         ids = [i for i, f in enumerate(frames)
@@ -119,9 +123,11 @@ def render_camera_batch(renderer, cams, rmesh=None) -> torch.Tensor:
             group = [frames[i] for i in ids[a:b]]
             wa = None if rmesh is None else rmesh.replica(renderer._wa, dev)
             with on_device(dev):
-                screens = phase2_group(
-                    renderer, march_group(renderer, group, direction, wa, dev),
-                    group, wa)
+                raybuf = march_group(renderer, group, direction,
+                                     bucket_size(len(group), len(cams)), wa,
+                                     dev)
+                screens = phase2_group(renderer, raybuf[:len(group) * R1],
+                                       group, wa)
             for j, i in enumerate(ids[a:b]):
                 out[i] = screens[j].to(devices[0])
     return torch.stack(out)

@@ -17,9 +17,10 @@ device:
 A list may name a device more than once (``["cuda:0"] * 4``, ``["cpu"] *
 8``): every split, gather and replica then runs on one card, as the JAX
 tests' 8 virtual CPU devices run on one host.  The shards run one after
-another from the host, and each shard's march reads its live count once a
+another from the host.  A ray shard's march reads its live count once a
 chunk, so N shards on one card make about N times the launches of one
-march.
+march; a camera block on the graph route is one launch of a batch march
+graph on its device and reads nothing.
 """
 from __future__ import annotations
 

@@ -13,7 +13,9 @@ same raybuffer.  On a CUDA Renderer with the kernels and compaction off
 (``march_graph.py``) and the host rays go up from pinned memory
 (``ray_init.RayStaging``), so ``render_device`` reads nothing from the
 device and returns before the frame is done; otherwise (the CPU, the plain
-versions, ``compact=True``: a live-ray index) the host drives the march.
+versions, ``compact=True``: a live-ray index) the host drives the march
+(``graph_route``).  A camera batch (``parallel/batch.py``) marches each
+direction group through a batch graph of its own (``march_batch_graph``).
 In ARGB mode (``argb_records`` on a world whose columns hold few enough
 voxels, ``argb_on``) the records carry the columns' colors, phase 1 writes
 final colors and phase 2 samples them with no resolve.
@@ -99,10 +101,13 @@ class Renderer:
     # march is bound by the host's launches, and the index adds some (31 to a
     # gated iteration), so the device time it saves does not reach the frame
     compact: bool = False
-    # the march graph (``march_graph.py``) and the host rays' staging (by
-    # ray count and device); not copied by ``dataclasses.replace``
+    # the march graph (``march_graph.py``), a camera batch's march graphs
+    # by (rays, texels, device), and the host rays' staging (by ray count
+    # and device); not copied by ``dataclasses.replace``
     _graph: MarchGraph | None = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
+    _batch_graphs: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
     _staging: dict = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
 
@@ -277,16 +282,24 @@ class Renderer:
             static, dda, alive0 = self.init_rays_device(f, R=R, device=device)
         return f._replace(static=static, dda=dda, alive0=alive0)
 
+    def graph_route(self, device=None, compact: bool | None = None) -> bool:
+        """Whether a march on ``device`` (the Renderer's for None) is a
+        launch of a march graph: a CUDA device with the kernels on and
+        compaction off (``compact`` None: as the Renderer was created).
+        Elsewhere the host drives the loop."""
+        device = torch.device(self.device if device is None else device)
+        compact = self.compact if compact is None else compact
+        return device.type == "cuda" and self.kernels and not compact
+
     def march(self, f: FrameSetup, compact: bool | None = None) -> torch.Tensor:
         """Phase 1 of a frame: the raybuffer (R, P) int32 of color indices,
         or in ARGB mode of final colors.  ``compact`` True marches on a
         live-ray index, False marches every ray slot to the end, None does as
         the Renderer was created (``compact=``); the raybuffer is the same.
-        On a CUDA Renderer with the kernels and compaction off the march is
-        one launch of the march graph (``march_graph``), with no host read;
-        otherwise the host drives the loop."""
-        compact = self.compact if compact is None else compact
-        if self.device.type == "cuda" and self.kernels and not compact:
+        On the graph route (``graph_route``) the march is one launch of the
+        march graph (``march_graph``), with no host read; otherwise the host
+        drives the loop."""
+        if self.graph_route(compact=compact):
             return self.march_graph(f)
         return self.march_rays(f.static, f.dda, f.alive0, f.cam_data,
                                f.cam_data.position[1], f.iteration_direction,
@@ -302,11 +315,40 @@ class Renderer:
         if g is None or g.shape != (R, P):
             g = self._graph = MarchGraph(R, P, self.device_world.dims[1],
                                          self.solid_bounds, self.device)
+        return self._graph_march(g, self._wa, f.cam_data,
+                                 f.iteration_direction, f.static, f.dda,
+                                 f.alive0, f.cam_data.position[1])
+
+    def march_batch_graph(self, static, dda, alive0, cam_y, cam_y_norm,
+                          cam_data, iteration_direction: int,
+                          wa: raymarch.WorldArrays | None = None):
+        """A camera batch's march (``parallel/batch.py``) on the rays'
+        device through one of the Renderer's batch graphs, a ``MarchGraph``
+        for each (rays, texels, device), kept apart from the single frame's
+        so that neither evicts the other.  ``cam_y`` and ``cam_y_norm`` are
+        (R,) tensors a ray (``device_init.init_rays_batch``); the LOD
+        distances and far clip are ``cam_data``'s; the world is the
+        Renderer's or ``wa``, a replica of it on that device."""
+        R, P = static.dirs.shape[0], max(self.render_wh)
+        dev = static.dirs.device
+        g = self._batch_graphs.get((R, P, dev))
+        if g is None:
+            g = self._batch_graphs[(R, P, dev)] = MarchGraph(
+                R, P, self.device_world.dims[1], self.solid_bounds, dev)
+        return self._graph_march(g, self._wa if wa is None else wa, cam_data,
+                                 iteration_direction, static, dda, alive0,
+                                 cam_y, cam_y_norm)
+
+    def _graph_march(self, g: MarchGraph, wa, cam_data,
+                     iteration_direction: int, static, dda, alive0, cam_y,
+                     cam_y_norm=None) -> torch.Tensor:
+        """The march of these rays through ``g``'s variant for the
+        Renderer's settings, captured on its first use."""
         kw = self.march_kwargs(compact=False)
-        v = g.variant(self._wa, f.cam_data.lod_distances, f.cam_data.far_clip,
-                      kw["dims"], f.iteration_direction, kw["chunk"],
+        v = g.variant(wa, cam_data.lod_distances, cam_data.far_clip,
+                      kw["dims"], iteration_direction, kw["chunk"],
                       kw["max_chunks"], kw["gated_cells"])
-        return g.march(v, f.static, f.dda, f.alive0, f.cam_data.position[1])
+        return g.march(v, static, dda, alive0, cam_y, cam_y_norm)
 
     def march_kwargs(self, compact: bool | None = None) -> dict:
         """The keywords of ``raymarch.phase1`` that the Renderer resolves:

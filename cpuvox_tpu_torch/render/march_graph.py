@@ -9,7 +9,9 @@ Here the loop is a CUDA graph with a conditional WHILE node whose condition
 a hand-written kernel sets (``csrc/march_loop.cu``).
 
 A ``MarchGraph`` belongs to a Renderer (``Renderer.march`` on a CUDA
-Renderer with the kernels and compaction off).  It holds static buffers at
+Renderer with the kernels and compaction off; a camera batch's march,
+``parallel/batch.py``, on such a Renderer in a graph of its own at the
+group's bucketed ray count).  It holds static buffers at
 the frame's ray count: the rays (``RayStatic``), the loop's state
 (``raymarch.MarchState``: the DDA, the liveness, the raster state, the
 iteration counter, the rewind count) and the per-ray camera height the
@@ -32,7 +34,9 @@ variants of a MarchGraph capture into one private pool: they never run at
 once, and a body's temporaries are dead by its end.
 
 A frame copies its rays into the buffers (device-to-device, no host read),
-fills the camera height, launches the graph, adds the iteration and rewind
+fills the camera height (a camera batch copies a height a ray, and its
+quotient by the world's height, both made with its rays), launches the
+graph, adds the iteration and rewind
 counts to the stats on the device, and fills the skybox into a new tensor,
 so the raybuffer it returns does not alias the buffers that the next frame
 overwrites.  Phase 2 follows as an eager launch on the same stream.
@@ -126,13 +130,20 @@ class MarchGraph:
         return tuple(self.state.rs.raybuf.shape)
 
     def load(self, static: rm.RayStatic, dda: rm.DDAState, alive0,
-             cam_y) -> None:
-        """A frame's rays and camera height into the buffers."""
+             cam_y, cam_y_norm=None) -> None:
+        """A frame's rays and camera height into the buffers: ``cam_y`` the
+        camera's height, or for a batch of cameras (R,) tensors of a ray's
+        camera height and its ``cam_y_norm`` (``device_init.
+        init_rays_batch``)."""
         for d, x in zip(self.static, static):
             d.copy_(x)
         for d, x in zip(self.state.dda, dda):
             d.copy_(x)
         self.state.alive.copy_(alive0)
+        if cam_y_norm is not None:
+            self.consts["cam_y"].copy_(cam_y)
+            self.consts["cam_y_norm"].copy_(cam_y_norm)
+            return
         cy = np.float32(cam_y)
         self.consts["cam_y"].fill_(float(cy))
         # an f32 divide, as raster_consts computes it
@@ -235,13 +246,14 @@ class MarchGraph:
         return exec_
 
     def march(self, v: _Variant, static: rm.RayStatic, dda: rm.DDAState,
-              alive0, cam_y):
-        """One frame's march of variant ``v`` on these rays: the (R, P)
-        int32 raybuffer after the skybox fill, a tensor of its own."""
+              alive0, cam_y, cam_y_norm=None):
+        """One frame's march of variant ``v`` on these rays (``load``'s
+        camera heights): the (R, P) int32 raybuffer after the skybox fill, a
+        tensor of its own."""
         from cpuvox_tpu_torch.ops import march_loop
 
         a = v.args
-        self.load(static, dda, alive0, cam_y)
+        self.load(static, dda, alive0, cam_y, cam_y_norm)
         s = self.state
         if v.exec is not None:
             v.exec.launch(torch.cuda.current_stream(self.device))

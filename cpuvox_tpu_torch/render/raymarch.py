@@ -14,9 +14,9 @@ ExecuteRay, re-expressed data-parallel over all rays):
   ``gated_step``) that reads nothing on the host; the loop's condition,
   ``any(alive) & (i < max_chunks)``, is ``loop_control``.  The host drives
   the loop (``march_on_host``, one read of the live count an iteration) on
-  the CPU, with compaction, for a camera batch and on the sharded paths;
-  a CUDA Renderer's default frame runs it as one CUDA graph launch
-  (``render/march_graph.py``);
+  the CPU, with compaction and on the ray-sharded and world-sharded paths;
+  a CUDA Renderer's default frame and a camera batch's direction group run
+  it as one CUDA graph launch (``render/march_graph.py``);
 - ``return``/``break`` early-outs become per-ray ``alive`` masks;
 - the raybuffer holds int32 color indices into ``WorldArrays.colors``
   (skybox = 0, unwritten = -1), resolved to ARGB once per frame; in ARGB
@@ -1079,8 +1079,8 @@ def gated_step(a: MarchArgs, s: MarchState, index=None) -> MarchState:
 
 
 def march_on_host(a: MarchArgs, s: MarchState, compact: bool):
-    """The loop driven from the host, for the CPU, compaction, the camera
-    batch and the sharded paths: one read of the live count an iteration
+    """The loop driven from the host, for the CPU, compaction and the
+    ray- and world-sharded paths: one read of the live count an iteration
     (``live_rays``), which also rebuilds the live-ray index.  Returns (the
     final state, iterations run)."""
     step = gated_step if a.group_cells else march_step
