@@ -36,9 +36,10 @@ non-zero (no phase catches its own failure):
    through the kernels, the plain path, the kernels without compaction and
    the kernels with device ray init (bit-equal, and each variant's phase 2
    through the fused kernel against its plain version); the 1920x1080
-   flythrough (24 frames) with launch counts, index rebuilds and mean rays
-   a chunk, a magenta check, fps and frame p50, no torch column fetch, no
-   torch phase-2 index map and one phase-2 launch a frame on the way;
+   flythrough (24 frames) with launch counts, iterations by stage width and
+   mean ray slots an iteration, a magenta check, fps and frame p50, no
+   torch column fetch, no torch phase-2 index map and one phase-2 launch a
+   frame on the way;
 4. terrain2048 in ARGB mode (``argb_records=True``, with
    ``host_init=False``: device ray init): the records' shape and
    ``max_col_colors``; both rasterizers with MCC 13 on a 1080p chunk
@@ -79,14 +80,15 @@ non-zero (no phase catches its own failure):
    step through the batch march graphs (a direction group's rays built on
    the card in one pass, one graph launch, one phase-2 launch) == the
    host-loop batch == the plain versions == each camera's single-camera
-   frame; 8 cameras in ARGB mode and 8 on a gated 256x128x256 layered
+   frame, and the compacted step through the staged batch graphs == the
+   same; 8 cameras in ARGB mode and 8 on a gated 256x128x256 layered
    world through the graphs against their single frames; 4 warm steps
    queued with no host read (``set_sync_debug_mode("error")``), no capture
-   and no pool growth; the batched phase-2 kernel and a launch of the
-   single-camera kernel a camera, each against the plain phase 2 camera by
-   camera, timed side by side; cams/s on the graphs and on the host loop in
-   turns, launches and iterations a step, where a step's time goes, a
-   step's device busy share;
+   and no pool growth, uncompacted and staged; the batched phase-2 kernel
+   and a launch of the single-camera kernel a camera, each against the
+   plain phase 2 camera by camera, timed side by side; cams/s on the
+   uncompacted and the staged graphs in turns, launches and iterations a
+   step, where a step's time goes, a step's device busy share;
 10. the dynamic worlds (``world/dynamic.py``, ``bench.py:254-282``): the
    512x128x512 surface world rebuilt on the card == the same build on the
    CPU, every field, with ``exact_lod1`` off and on; a 1280x720 frame
@@ -122,7 +124,10 @@ non-zero (no phase catches its own failure):
    (LOD0 striped in tiles of 256 columns; the dense and the gated march),
    three path cameras at the default LOD0 radius and at a radius of 300
    (a window of 5 x 5 of the 8 x 8 tiles), screens == the unsharded
-   Renderer's, the window, the exchanges and their bytes; (f) on each, the
+   Renderer's, the window, the exchanges and their bytes; the window over
+   12 path cameras, the inner Renderer on the graph route uncompacted and
+   staged: its captures and ``memory_reserved`` do not grow with the
+   window's moves; (f) on each, the
    rasterizer on a chunk of the active window against its plain version;
    (c) ``render_frame_sharded`` on both worlds == the unsharded frame,
    launches a frame, frame ms sharded and unsharded in turns; (d) the
@@ -145,12 +150,13 @@ non-zero (no phase catches its own failure):
    key, 0 magenta pixels and the card's line, and in a flythrough record
    both ``fps_seq`` and ``fps_pipe``; each record is printed.
 
-[loop], at the end of phases 3, 4 and 6: the default Renderer's march, one
-launch of the march graph (``render/march_graph.py``: a WHILE conditional
+[loop], at the end of phases 3, 4 and 6: the full-width march
+(``compact=False``), one launch of the march graph (``render/march_graph.py``: a WHILE conditional
 node whose condition the loop-control kernel, ``csrc/march_loop.cu``,
 sets), on terrain2048 in index and ARGB mode (dense) and layered2048
 (gated), at 1920x1080.  First (phase 3) the loop-control kernel against its
-plain version at the frame's ray count, timed.  Then for each variant: (a)
+plain version at the frame's ray count, in its three modes (first, next,
+check) and with stage thresholds, timed.  Then for each variant: (a)
 on path cameras in both iteration directions the graph march == the
 host-driven march with the kernels on the same rays, raybuffer and screen,
 and at 320x180 a frame == the plain versions in the direction that phase
@@ -168,13 +174,23 @@ the next frame; (e) frame p50 sequential and pipelined, the device span,
 the pipelined pass's device busy share under ``torch.profiler`` and, from
 CUDA events, the card's time a frame after its setup against the
 pipelined pass's wall, and each variant's capture and instantiation ms and
-the private pool's bytes.
+the private pool's bytes.  Then the staged march graph of the same variant
+(the flythrough's compacted Renderer: a WHILE node a stage of halving
+width, ``raymarch.stage_widths``, the live rays packed on the card into the
+next stage's index between two): on the same cameras the staged graph ==
+the uncompacted graph == the host loop with compaction, raybuffer and
+screen, with equal iterations, each stage's iterations from the graph's
+exit buffer and no host-loop chunk; a warm compacted ``render_device``
+under ``set_sync_debug_mode("error")``; frame p50 sequential and
+pipelined, uncompacted and staged in turns, with no capture and no pool
+growth over the timed runs; each staged capture's ms and pool bytes a
+stage.
 
-The three flythrough Renderers are created with ``compact=True`` (the march
-on a live-ray index, driven from the host; the Renderer's default is the
-full-width march graph, which [loop], the oracle check, the split-layout
-frame, the dynamic worlds, the mesh path's sessions and a variant of each
-small frame run).  Each flythrough makes the harness's sequential and
+The three flythrough Renderers are created with ``compact=True``: the
+staged march graph, which is also the Renderer's default on the card
+(``compact=None``: the oracle check, the split-layout frame, the rollout's
+timed path, the dynamic worlds and the mesh path's sessions run it); the
+full-width graph runs in [loop] and in a variant of each small frame.  Each flythrough makes the harness's sequential and
 pipelined passes.  Kernel launch counts are set to 0 just before each
 flythrough, [loop]'s, the rollout's first timed run, the dynamic terrain's (``exact_lod1`` off)
 timed run, the mesh path's 1080p interactive run (two warmup steps and
@@ -694,6 +710,33 @@ def check_oracle(device):
         f"(oracle {t_oracle:.1f} s)")
 
 
+@contextlib.contextmanager
+def host_loop(renderer):
+    """Within the block ``renderer`` marches on the host loop
+    (``raymarch.march_on_host``), as it does on the CPU: a kernel call at a
+    time, which ``held_against_plain`` holds against the plain versions (a
+    graph replay calls no wrapper) and the host-loop comparisons run."""
+    renderer.graph_route = lambda device=None: False
+    try:
+        yield renderer
+    finally:
+        del renderer.graph_route
+
+
+def stage_summary(R: int) -> dict:
+    """The march graphs' iterations by stage width since the counts were
+    last set to 0 (``march_loop.stage_stats``, read from the device), their
+    sum, those below the full width ``R``, and the mean ray slots an
+    iteration."""
+    from cpuvox_tpu_torch.ops import march_loop
+
+    by = march_loop.stage_stats.read()
+    n = sum(by.values())
+    return {"by_width": by, "iterations": n,
+            "narrow": sum(v for w, v in by.items() if w < R),
+            "mean_slots": sum(w * v for w, v in by.items()) / n if n else 0.0}
+
+
 def check_small_frame(renderer, scene: str, variants, stats: dict):
     """One 320x180 frame through each variant: (label, config changes,
     another renderer or None, compact).  Screens must all equal the
@@ -701,6 +744,7 @@ def check_small_frame(renderer, scene: str, variants, stats: dict):
     renderer (an index-mode raybuffer holds indices, an ARGB one colors).
     Each variant's raybuffer also goes through the fused phase-2 kernel and
     its plain version."""
+    from cpuvox_tpu_torch.ops import march_loop
     from cpuvox_tpu_torch.render import raymarch
 
     cam = path_camera(renderer, 0.35, SMALL_WH)
@@ -711,6 +755,7 @@ def check_small_frame(renderer, scene: str, variants, stats: dict):
                                   height=SMALL_WH[1], **kw)
         r = dataclasses.replace(base, config=cfg, lod_distances=None)
         n0 = raymarch.compact_stats["rebuilds"]
+        march_loop.stage_stats.reset()
         t0 = time.perf_counter()
         f = r.frame_setup(cam)
         rb = r.march(f, compact=compact)
@@ -719,10 +764,15 @@ def check_small_frame(renderer, scene: str, variants, stats: dict):
         outs.append((label, screen, rb, time.perf_counter() - t0,
                      r.occupancy_on))
         check_phase2(r, f, rb, stats)
+        # compacted: on the host loop (the plain versions) the index was
+        # rebuilt, in a graph the staged march ran below the full width
         rebuilt = raymarch.compact_stats["rebuilds"] - n0
-        if bool(rebuilt) != compact:
+        narrow = stage_summary(rb.shape[0])["narrow"]
+        if bool(rebuilt or narrow) != compact or (rebuilt and narrow):
             raise AssertionError(f"{scene} {label}: {rebuilt} index rebuilds "
-                                 f"with compact={compact}")
+                                 f"on the host loop and {narrow} graph "
+                                 f"iterations below the full width with "
+                                 f"compact={compact}")
     for (label, screen, rb, _t, _g), (_l, _kw, other, _c) in zip(
             outs[1:], variants[1:]):
         compare(f"frame_{scene}_{label}",
@@ -778,7 +828,10 @@ def flythrough(renderer, scene: str, card: str, gated: bool):
     """A path's 1080p flythrough with the launch counts set to 0 just before
     it and read just after it, and every torch column fetch and torch
     phase-2 index map counted (the frames through the kernels must make
-    none): phase 2 is one launch of the fused kernel a frame."""
+    none): phase 2 is one launch of the fused kernel a frame.  The
+    Renderer compacts, so its march is the staged march graph: no march on
+    the host loop, iterations below the full width, read by stage from the
+    graphs' exit buffers."""
     from cpuvox_tpu_torch.bench.harness import run_flythrough
     from cpuvox_tpu_torch.ops import march_loop, phase1_kernel
     from cpuvox_tpu_torch.ops import reproject_kernel
@@ -819,22 +872,28 @@ def flythrough(renderer, scene: str, card: str, gated: bool):
             f"{scene}: phase 2 made {launches[2]} fused launches and "
             f"{reproject_kernel.sample_launches} sample launches in {frames} "
             "frames, where one fused launch a frame was expected")
-    if not cstats["rebuilds"]:
-        raise AssertionError(f"{scene}: the march never compacted its rays")
+    st = stage_summary(renderer.ray_capacity)
+    if cstats["chunks"] or not st["narrow"]:
+        raise AssertionError(f"{scene}: {cstats['chunks']} chunks on the host "
+                             f"loop, {st['narrow']} graph iterations below "
+                             "the full width: the march did not run staged "
+                             "in its graph")
     if metrics["magenta_pixels"]:
         raise AssertionError(f"{scene}: {metrics['magenta_pixels']} magenta "
                              "pixels in the flythrough")
-    if min(launches) <= 0:
+    if min(launches) <= 0 or counts["march_loop"] <= 0:
         raise AssertionError(f"{scene}: a kernel did not run on the path: "
-                             f"launches {launches}")
+                             f"launches {launches}, march_loop "
+                             f"{counts['march_loop']}")
     if gated and gstats["rewinds"] <= 0:
         raise AssertionError(f"{scene}: the gated march rewound no ray")
     extra = (f"; {gstats['iterations'] / frames:.1f} gated iterations and "
              f"{gstats['rewinds'] / frames:.0f} rays rewound per frame"
              if gated else "")
-    extra += (f"; {cstats['rebuilds'] / frames:.1f} index rebuilds a frame, "
-              f"mean {cstats['ray_slots'] / cstats['chunks']:.0f} of "
-              f"{renderer.ray_capacity} ray slots a chunk")
+    extra += (f"; staged graph, iterations by stage width "
+              f"{st['by_width']} ({st['iterations'] / frames:.1f} a frame), "
+              f"mean {st['mean_slots']:.0f} of {renderer.ray_capacity} ray "
+              f"slots an iteration; 0 chunks on the host loop")
     log(f"[{scene}] {MAIN_WH[0]}x{MAIN_WH[1]} flythrough, {N_FRAMES} frames "
         f"on {card}: fps {metrics['fps']:.3f} (pipelined "
         f"{metrics['fps_pipe']:.3f}), frame p50 "
@@ -843,8 +902,10 @@ def flythrough(renderer, scene: str, card: str, gated: bool):
         f"{metrics['ray_columns_per_sec']:.0f} ray columns/s, 0 magenta, 0 "
         f"torch column fetches, 0 torch phase-2 index maps; launches roll "
         f"{launches[0]}, rasterize {launches[1]}, phase 2 {launches[2]} "
-        f"(0 of the previous sample){extra}")
-    return dict(zip([k[0] for k in KERNELS], launches)), metrics, gstats
+        f"(0 of the previous sample), loop control {counts['march_loop']} "
+        f"(a check a stage a frame and one an iteration){extra}")
+    return ({**dict(zip([k[0] for k in KERNELS], launches)),
+             "march_loop": counts["march_loop"]}, metrics, st)
 
 
 def check_lods_past_8(renderer, stats: dict) -> None:
@@ -908,23 +969,34 @@ def check_loop_kernel(renderer, stats: dict) -> dict:
     def mask(p):
         return torch.from_numpy(rng.random(R + 1) < p).to(dev)
 
-    cases = [(mask(0.5), mask(0.5), 3, 100, False),
+    # (alive, rs_alive, counter, budget, mode, threshold): the unstaged
+    # loop's any (threshold 0), then a stage's count against its threshold
+    # after an iteration and in check mode (neither reset nor advanced)
+    cases = [(mask(0.5), mask(0.5), 3, 100, "first", 0),
              (mask(0.5), torch.zeros(R + 1, dtype=torch.bool, device=dev),
-              3, 100, False),
-             (mask(0.1), mask(0.9), 99, 100, False),
-             (mask(0.5), mask(0.5), 41, 100, True)]
+              3, 100, "next", 0),
+             (mask(0.1), mask(0.9), 99, 100, "next", 0),
+             (mask(0.5), mask(0.5), 41, 100, "first", 0),
+             (mask(0.5), mask(0.5), 3, 100, "next", R // 8),
+             (mask(0.5), mask(0.5), 3, 100, "check", R // 2),
+             (mask(0.1), mask(0.9), 41, 100, "check", 16),
+             (mask(0.5), mask(0.5), 100, 100, "check", 0)]
     conds = []
-    for alive, rs_alive, i, mx, first in cases:
+    for alive, rs_alive, i, mx, mode, thr in cases:
         for lo in (0, 1):  # the word path, then R - 1 rays from an odd byte
             a, b = alive[lo:lo + R - lo], rs_alive[lo:lo + R - lo]
-            got = [a.clone(), torch.tensor(i, dtype=torch.int32, device=dev)]
-            want = [a.clone(), got[1].clone()]
-            got.append(march_loop.loop_control(got[0], b, got[1], mx, first))
+            kw = {"first": mode == "first", "check": mode == "check",
+                  "threshold": thr}
+            got = [a.clone(), torch.tensor(i, dtype=torch.int32, device=dev),
+                   torch.tensor(-1, dtype=torch.int32, device=dev)]
+            want = [x.clone() for x in got]
+            got.append(march_loop.loop_control(got[0], b, got[1], mx,
+                                               exit_out=got[2], **kw))
             want.append(march_loop.loop_control_ref(want[0], b, want[1], mx,
-                                                    first))
+                                                    exit_out=want[2], **kw))
             compare("march_loop", got, want, stats)
-            conds.append(int(got[2]))
-    if conds != [1, 1, 0, 0, 0, 0, 1, 1]:
+            conds.append(int(got[3]))
+    if conds != [1, 1, 0, 0, 0, 0, 1, 1, 1, 1, 0, 0, 1, 1, 0, 0]:
         raise AssertionError(f"[loop] the control's conditions {conds}")
     alive, rs_alive = mask(0.5)[:R], mask(0.5)[:R]
     counter = torch.zeros((), dtype=torch.int32, device=dev)
@@ -935,15 +1007,17 @@ def check_loop_kernel(renderer, stats: dict) -> dict:
     plain_ms = time_ms(lambda _: march_loop.loop_control_ref(
         alive, rs_alive, counter, 1 << 30), 50)
     # read alive and rs_alive and the counter, write alive, the counter and
-    # the condition; an AND and an OR a ray
+    # the condition (the timed call has no exit slot); an AND and a count a
+    # ray
     nbytes, nops = 3 * R + 12, 2 * R
     b_ms, b_by = bound(nbytes, nops)
     out = {"ms": ms, "device_ms": device, "plain_ms": plain_ms,
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
            "operations": nops, "library_ms": None, "rays": R}
     log(f"[loop] march_loop == plain at {R} rays (and {R - 1} from an odd "
-        f"address): alive, counter and condition, 0 elements differ, "
-        f"tolerance 0; kernel {ms:.4f} ms a call, {device:.4f} ms on the "
+        f"address), first, next and check mode, thresholds 0, {R // 8}, "
+        f"{R // 2} and 16: alive, counter, exit slot and condition, 0 "
+        f"elements differ, tolerance 0; kernel {ms:.4f} ms a call, {device:.4f} ms on the "
         f"device a launch, plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
         f"({b_by}: {nbytes} B, {nops} ops), library none ({card_line()})")
     return out
@@ -1146,6 +1220,146 @@ def check_loop(renderer, tag: str, card: str, stats: dict, loop: dict):
     log(f"[loop] {tag} done in {time.perf_counter() - t_phase:.1f} s")
 
 
+def check_loop_staged(renderer, tag: str, card: str, stats: dict,
+                      loop: dict) -> None:
+    """Phase [loop] on the staged march graph (the compacted Renderer with
+    the kernels: stages of halving width, the live rays packed on the card
+    between them): (a) on the 1080p path cameras in both iteration
+    directions the staged graph == the uncompacted graph == the host loop
+    with compaction (the kernels a call at a time), raybuffer and screen,
+    with the uncompacted graph's iterations, and each stage's iterations
+    from the variant's exit buffer; the compacted march never reaches the
+    host loop; (b) a warm compacted ``render_device`` under
+    ``set_sync_debug_mode("error")``; (c) frame p50 sequential and
+    pipelined, uncompacted and staged in turns (u, s, s, u; both Renderers
+    share one MarchGraph), 0 magenta, no capture and ``memory_reserved``
+    unchanged over the timed runs; (d) each staged capture's ms and pool
+    bytes, stage by stage.  Adds the numbers to ``loop[tag]["staged"]``."""
+    from cpuvox_tpu_torch.bench.harness import run_flythrough
+    from cpuvox_tpu_torch.ops import march_loop
+    from cpuvox_tpu_torch.render import raymarch
+
+    r = renderer
+    if not (r.kernels and r.compact and r.graph_route()):
+        raise AssertionError(f"[loop] {tag}: not a compacted march-graph "
+                             "Renderer")
+    t_phase = time.perf_counter()
+    R = r.ray_capacity
+    widths = r.stage_widths(R)
+    stat, key = ((raymarch.gated_stats, "iterations") if r.occupancy_on
+                 else (raymarch.compact_stats, "chunks"))
+    rows = []
+    for t in LOOP_PATH_T:
+        cam = path_camera(r, t)
+        f = r.frame_setup(cam)
+        march_loop.reset_launches()
+        c0 = raymarch.compact_stats["chunks"]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        staged = r.march(f)
+        ev[1].record()
+        by = stage_summary(R)["by_width"]
+        it_s = march_loop.graph_stats["iterations"]
+        if raymarch.compact_stats["chunks"] != c0:
+            raise AssertionError(f"[loop] {tag} t={t}: the compacted march "
+                                 "ran on the host loop")
+        torch.cuda.synchronize()
+        ev[2].record()
+        full = r.march(f, compact=False)
+        ev[3].record()
+        it_f = march_loop.graph_stats["iterations"] - it_s
+        h0 = stat[key]
+        host = r.march_rays(f.static, f.dda, f.alive0, f.cam_data,
+                            f.cam_data.position[1], f.iteration_direction,
+                            compact=True)
+        it_h = stat[key] - h0
+        screen = r.phase2(f, staged)
+        compare(f"[loop] {tag} staged t={t}", [staged, screen, staged, screen],
+                [full, r.phase2(f, full), host, r.phase2(f, host)], {})
+        if int((screen == raymarch.MAGENTA_I32).sum()):
+            raise AssertionError(f"[loop] {tag} staged t={t}: magenta")
+        if not it_s == it_f == it_h > 0:
+            raise AssertionError(f"[loop] {tag} staged t={t}: iterations "
+                                 f"staged {it_s}, uncompacted {it_f}, host "
+                                 f"loop {it_h}")
+        r.render_device(cam)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            r.render_device(cam)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        rows.append((t, f.iteration_direction, it_s,
+                     [by.get(w, 0) for w in widths],
+                     round(ev[0].elapsed_time(ev[1]), 3),
+                     round(ev[2].elapsed_time(ev[3]), 3)))
+    if {row[1] for row in rows} != {1, -1}:
+        raise AssertionError(f"[loop] {tag} staged: directions {rows}")
+    log(f"[loop] {tag} staged (a)-(b) {MAIN_WH[0]}x{MAIN_WH[1]}, stage "
+        f"widths {list(widths)}: the staged graph == the uncompacted graph "
+        f"== the host loop with compaction, raybuffer and screen, 0 texels "
+        f"and 0 pixels differ, 0 magenta; the compacted march never ran on "
+        f"the host loop; a warm compacted render_device under "
+        f"set_sync_debug_mode('error') raised nothing; (t, direction, "
+        f"iterations == uncompacted == host loop, iterations by stage from "
+        f"the exit buffer, the march's card ms staged and full width by "
+        f"CUDA events) {rows} ({card})")
+
+    # (c) frame p50, uncompacted and staged in turns, one MarchGraph
+    u = dataclasses.replace(r, compact=False)
+    u._graph, u._staging = r._graph, r._staging
+    caps0 = len(r._graph.captures)
+    runs: dict = {False: [], True: []}
+    reserved = []
+    for compact in (False, True, True, False):
+        m = run_flythrough(r if compact else u, n_frames=N_FRAMES, log=log)
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved(r.device))
+        if m["magenta_pixels"]:
+            raise AssertionError(f"[loop] {tag}: {m['magenta_pixels']} "
+                                 "magenta pixels in a timed run")
+        runs[compact].append(m)
+    if len(r._graph.captures) != caps0 or len(set(reserved)) != 1:
+        raise AssertionError(f"[loop] {tag}: over the timed runs captures "
+                             f"{caps0} -> {len(r._graph.captures)}, "
+                             f"memory_reserved {reserved}")
+
+    def p50(compact, k):
+        return [m[k] for m in runs[compact]]
+
+    out = {"widths": list(widths), "rows": rows,
+           "seq_ms": {c: p50(c, "frame_ms_p50") for c in runs},
+           "pipe_ms": {c: p50(c, "frame_ms_p50_pipe") for c in runs},
+           "fps_seq": {c: p50(c, "fps_seq") for c in runs},
+           "fps_pipe": {c: p50(c, "fps_pipe") for c in runs},
+           "memory_reserved": reserved[0],
+           "captures": [c for c in r._graph.captures
+                        if len(c["widths"]) > 1]}
+    loop[tag]["staged"] = out
+
+    def txt(k):
+        return (f"uncompacted {np.round(out[k][False], 3).tolist()}, staged "
+                f"{np.round(out[k][True], 3).tolist()}")
+
+    log(f"[loop] {tag} staged (c) {MAIN_WH[0]}x{MAIN_WH[1]} flythrough, "
+        f"{N_FRAMES} frames a pass, runs in turns (uncompacted, staged, "
+        f"staged, uncompacted): frame p50 sequential ms {txt('seq_ms')}; "
+        f"pipelined ms {txt('pipe_ms')}; 0 magenta; captures {caps0} and "
+        f"memory_reserved {reserved[0]} bytes unchanged over the runs "
+        f"({card})")
+    for c in out["captures"]:
+        log(f"[loop] {tag} staged (d) capture, direction {c['direction']}, "
+            f"{'gated' if c['gated'] else 'dense'}: warm {c['warm_ms']:.3f} "
+            f"ms, capture {c['capture_ms']:.3f} ms, instantiate "
+            f"{c['instantiate_ms']:.3f} ms, private pool +{c['pool_bytes']} "
+            f"bytes; by stage (width: capture ms, pool bytes) "
+            + ", ".join(f"{s['width']}: {s['capture_ms']:.3f}, "
+                        f"{s['pool_bytes']}" for s in c["stages"]))
+    log(f"[loop] {tag} staged done in {time.perf_counter() - t_phase:.1f} s")
+
+
 ROLLOUT_WH = (256, 256)
 N_ROLLOUT_CAMS = 64
 
@@ -1182,17 +1396,20 @@ def check_rollout(card: str, stats: dict) -> dict:
     world and 64-camera steps at 256x256 (``bench/harness.py``).  The batch
     through the batch march graphs (the Renderer's default: a direction
     group's rays built in one pass on the card, one graph launch and one
-    phase-2 launch a group) == the host-loop batch (compaction on) == the
-    batch through the plain versions == each camera's single-camera frame;
-    8 cameras in ARGB mode and 8 on a gated layered world through the
-    graphs against their single frames; 4 warm steps queued under
-    ``set_sync_debug_mode("error")``, the captures and ``memory_reserved``
-    unchanged over them; both phase-2 variants against the plain phase 2
-    camera by camera, timed side by side; then cams/s on the graphs and on
-    the host loop in turns, launches and iterations a step, where a step's
-    time goes, and a step's device busy share, alone and 4 steps queued.
-    The rollout path's kernel counts are set to 0 just before its first
-    timed run (the graph route) and read just after it."""
+    phase-2 launch a group) == the compacted batch through the staged
+    batch graphs (stages of halving width at the group's bucketed ray
+    count) == the host-loop batch (compaction on) == the batch through the
+    plain versions == each camera's single-camera frame; 8 cameras in ARGB
+    mode and 8 on a gated layered world through the graphs against their
+    single frames; 4 warm steps queued under ``set_sync_debug_mode(
+    "error")``, uncompacted and staged, the captures and
+    ``memory_reserved`` unchanged over them; both phase-2 variants against
+    the plain phase 2 camera by camera, timed side by side; then cams/s on
+    the uncompacted and the staged graphs in turns, launches and iterations
+    a step, where a step's time goes, and a step's device busy share, alone
+    and 4 steps queued.  The rollout path's kernel counts are set to 0 just
+    before its first timed run (the staged graphs, the Renderer's default
+    on the card) and read just after it."""
     from cpuvox_tpu_torch.bench import harness
     from cpuvox_tpu_torch.bench.breakdown import device_activities, union_us
     from cpuvox_tpu_torch.config import RenderConfig
@@ -1200,11 +1417,14 @@ def check_rollout(card: str, stats: dict) -> dict:
     from cpuvox_tpu_torch.ops import march_loop
     from cpuvox_tpu_torch.ops import reproject_kernel as rk
     from cpuvox_tpu_torch.parallel import batch
-    from cpuvox_tpu_torch.render import device_init
+    from cpuvox_tpu_torch.render import device_init, raymarch
     from cpuvox_tpu_torch.render.frame import Renderer
+    from cpuvox_tpu_torch.render.raymarch import MAGENTA_I32
 
     t0 = time.perf_counter()
-    r = harness.rollout_renderer(ROLLOUT_WH)
+    # the full-width batch graphs here; ``staged`` below is the Renderer's
+    # default on the card (``compact=None``), the compacted batch
+    r = harness.rollout_renderer(ROLLOUT_WH, compact=False)
     dw = r.device_world
     if r.occupancy_on or dw.max_runs != 3:
         raise AssertionError(f"rollout world: gate {r.occupancy_on}, "
@@ -1231,9 +1451,29 @@ def check_rollout(card: str, stats: dict) -> dict:
     if buckets != want:
         raise AssertionError(f"[rollout] batch graphs at buckets {buckets}, "
                              f"not {want}")
+    # the compacted batch: staged batch graphs, sharing r's MarchGraphs
+    staged = dataclasses.replace(r, compact=None)
+    staged._batch_graphs = r._batch_graphs
+    march_loop.reset_launches()
+    c0 = raymarch.compact_stats["chunks"]
+    t0 = time.perf_counter()
+    sb = batch.render_camera_batch(staged, cams)
+    torch.cuda.synchronize()
+    t_s = time.perf_counter() - t0
+    s_stages = march_loop.stage_stats.read()
+    s_graphs = [v.widths for g in r._batch_graphs.values()
+                for v in g.variants.values() if len(v.widths) > 1]
+    if raymarch.compact_stats["chunks"] != c0 or len(s_graphs) != 2:
+        raise AssertionError(f"[rollout] the compacted batch: staged graphs "
+                             f"{s_graphs}, host-loop chunks "
+                             f"{raymarch.compact_stats['chunks'] - c0}")
+    compare("rollout batch, staged graphs", [sb], [kb], {})
+    if int((sb == MAGENTA_I32).sum()):
+        raise AssertionError("[rollout] magenta in the staged batch")
     host = dataclasses.replace(r, compact=True)
     t0 = time.perf_counter()
-    hb = batch.render_camera_batch(host, cams)
+    with host_loop(host):
+        hb = batch.render_camera_batch(host, cams)
     torch.cuda.synchronize()
     t_h = time.perf_counter() - t0
     plain = dataclasses.replace(r, config=dataclasses.replace(
@@ -1248,12 +1488,15 @@ def check_rollout(card: str, stats: dict) -> dict:
     compare("rollout batch, plain", [kb], [pb], {})
     log(f"[rollout] one step of {N_ROLLOUT_CAMS} cameras: the batch through "
         f"the batch march graphs (buckets of {buckets} cameras, "
-        f"{[b * r.ray_capacity for b in buckets]} rays) == the "
+        f"{[b * r.ray_capacity for b in buckets]} rays) == the compacted "
+        f"batch through the staged batch graphs (stage widths {s_graphs}; "
+        f"iterations by width {s_stages}; {t_s:.2f} s with the captures, 0 "
+        f"chunks on the host loop, 0 magenta) == the "
         f"host-loop batch (compacted, {t_h:.2f} s) == the batch through the "
         f"plain versions (compacted, {t_p:.1f} s) == the {N_ROLLOUT_CAMS} "
         f"single-camera graph frames ({t_k:.2f} s with the batch, cold), "
         "index mode, 0 pixels differ, 0 magenta")
-    del host, plain, hb, pb
+    del host, plain, hb, pb, sb
 
     ra = harness.rollout_renderer(ROLLOUT_WH, argb_records=True)
     if not ra.argb_on:
@@ -1288,36 +1531,43 @@ def check_rollout(card: str, stats: dict) -> dict:
     def n_captures():
         return sum(len(g.captures) for g in r._batch_graphs.values())
 
-    batch.render_camera_batch(r, steps[0])
-    torch.cuda.synchronize()
-    caps, reserved = [n_captures()], [torch.cuda.memory_reserved(r.device)]
-    march_loop.reset_launches()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        for st in steps[1:]:
-            batch.render_camera_batch(r, st)
-            caps.append(n_captures())
-            reserved.append(torch.cuda.memory_reserved(r.device))
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    it_steps = march_loop.graph_stats["iterations"] / 4
-    g_steps = march_loop.graph_stats["launches"]
-    if len(set(caps)) != 1 or len(set(reserved)) != 1 or g_steps != 8:
-        raise AssertionError(f"[rollout] over 4 warm steps: captures {caps}, "
-                             f"memory_reserved {reserved}, {g_steps} graph "
-                             "launches")
+    warm = {}
+    for label, rr in (("uncompacted", r), ("staged", staged)):
+        batch.render_camera_batch(rr, steps[0])
+        torch.cuda.synchronize()
+        caps = [n_captures()]
+        reserved = [torch.cuda.memory_reserved(r.device)]
+        march_loop.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for st in steps[1:]:
+                batch.render_camera_batch(rr, st)
+                caps.append(n_captures())
+                reserved.append(torch.cuda.memory_reserved(r.device))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        g_steps = march_loop.graph_stats["launches"]
+        if len(set(caps)) != 1 or len(set(reserved)) != 1 or g_steps != 8:
+            raise AssertionError(f"[rollout] over 4 warm steps ({label}): "
+                                 f"captures {caps}, memory_reserved "
+                                 f"{reserved}, {g_steps} graph launches")
+        warm[label] = (march_loop.graph_stats["iterations"] / 4, caps[0],
+                       reserved[0], march_loop.stage_stats.read())
+    it_steps = warm["uncompacted"][0]
     captured = "; ".join(
         f"{c['direction']:+d} at {k[0]} rays: capture {c['capture_ms']:.2f} "
         f"ms, instantiate {c['instantiate_ms']:.2f} ms, pool "
         f"+{c['pool_bytes']} B" for k, g in r._batch_graphs.items()
         for c in g.captures)
     log(f"[rollout] 4 warm steps, queued back to back under "
-        f"set_sync_debug_mode('error'): no host read; {g_steps} graph "
-        f"launches, {it_steps:.2f} iterations a step (device counter); "
-        f"captures {caps[0]} and memory_reserved {reserved[0]} bytes after "
-        f"the warm step, unchanged after each of the 4 (the captures: "
-        f"{captured}) ({card})")
+        f"set_sync_debug_mode('error'), uncompacted then staged: no host "
+        f"read; 8 graph launches each, iterations a step (device counter) "
+        f"{warm['uncompacted'][0]:.2f} and {warm['staged'][0]:.2f} (staged, "
+        f"by stage width {warm['staged'][3]}); captures and memory_reserved "
+        f"after the warm step {warm['uncompacted'][1:3]} and "
+        f"{warm['staged'][1:3]} bytes, unchanged after each of the 4 (the "
+        f"captures: {captured}) ({card})")
 
     # phase 2 of the looking-down group, both variants
     group = [f for f in frames if f.iteration_direction > 0]
@@ -1368,11 +1618,11 @@ def check_rollout(card: str, stats: dict) -> dict:
         f"({p2['bound_by']}: {p2['bytes']} B); both == plain camera by "
         f"camera, 0 pixels differ ({card})")
 
-    # the timed runs, in turns: the batch march graphs (the Renderer's
-    # default, the path's launch counts) and the host loop (compaction on)
+    # the timed runs, in turns: the staged batch graphs (the Renderer's
+    # default, the path's launch counts) and the full-width ones
     runs = {False: [], True: []}
-    for k, compact in enumerate((False, True, True, False)):
-        rr = dataclasses.replace(r, compact=compact)
+    for k, compact in enumerate((True, False, False, True)):
+        rr = staged if compact else r
         if k == 0:
             march_loop.reset_launches()
         m = harness.run_rollout(rr, N_ROLLOUT_CAMS, log=log)
@@ -1390,28 +1640,30 @@ def check_rollout(card: str, stats: dict) -> dict:
                              "kernel of the path did not run, phase 2 ran a "
                              "camera at a time, or a group left the graph")
     cps = {c: [m["cams_per_sec"] for m in v] for c, v in runs.items()}
-    per_step = runs[False][0]["launches_per_step"]
+    per_step = runs[True][0]["launches_per_step"]
 
     # where a step's host time goes, each stage synced, and the card's time
     # for the marches and phase 2 (CUDA events around each, its inputs
     # ready); a step's device busy share: that time over the step's wall,
     # and the union of its device activities under the profiler over the
-    # same step's unprofiled wall, synced alone and 4 steps queued
+    # same step's unprofiled wall, synced alone and 4 steps queued; on the
+    # staged graphs (the default), and the full-width graphs' march on the
+    # same rays beside each group's
     step = harness.rollout_cameras(9, N_ROLLOUT_CAMS, ROLLOUT_WH, dw.dims)
     R1, dims = r.ray_capacity, dw.dims
-    walls, card_ms = [], []
+    walls, card_ms, full_ms = [], [], []
     stages = {"setup": [], "ray init": [], "march": [], "phase 2": []}
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        batch.render_camera_batch(r, step)
+        batch.render_camera_batch(staged, step)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
         t = {k: 0.0 for k in stages}
         t0 = time.perf_counter()
-        sframes = [r.frame_geometry(c) for c in step]
+        sframes = [staged.frame_geometry(c) for c in step]
         t["setup"] += time.perf_counter() - t0
-        on_card = 0.0
+        on_card = on_full = 0.0
         for d in (1, -1):
             g = [f for f in sframes if f.iteration_direction == d]
             t0 = time.perf_counter()
@@ -1423,40 +1675,50 @@ def check_rollout(card: str, stats: dict) -> dict:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
             t1 = time.perf_counter()
             ev[0].record()
-            rb = r.march_batch_graph(*rays, g[0].cam_data, d)
+            rb = staged.march_batch_graph(*rays, g[0].cam_data, d)
             ev[1].record()
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             ev[2].record()
-            batch.phase2_group(r, rb[:len(g) * R1], g)
+            batch.phase2_group(staged, rb[:len(g) * R1], g)
             ev[3].record()
             torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            fe = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            fe[0].record()
+            r.march_batch_graph(*rays, g[0].cam_data, d)
+            fe[1].record()
+            torch.cuda.synchronize()
+            on_full += fe[0].elapsed_time(fe[1])
             t["ray init"] += t1 - t0
             t["march"] += t2 - t1
-            t["phase 2"] += time.perf_counter() - t2
+            t["phase 2"] += t3 - t2
             on_card += ev[0].elapsed_time(ev[1]) + ev[2].elapsed_time(ev[3])
         for k, v in t.items():
             stages[k].append(v * 1e3)
         card_ms.append(on_card)
-    log(f"[rollout] where a step's time goes on the graph route (each stage "
-        f"synced, medians of 3): " + ", ".join(
+        full_ms.append(on_full)
+    log(f"[rollout] where a step's time goes on the staged graphs (each "
+        f"stage synced, medians of 3): " + ", ".join(
             f"{k} {np.median(v):.3f} ms" for k, v in stages.items())
         + f" (ray init: the group's parameters stacked and init_rays_batch); "
-        f"whole step {np.median(walls):.3f} ms ({card})")
+        f"whole step {np.median(walls):.3f} ms; the card's time for the two "
+        f"marches (events) staged {np.median(card_ms):.3f} ms with phase 2, "
+        f"full-width graphs {np.median(full_ms):.3f} ms without it ({card})")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     queued = steps[1:]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for st in queued:
-        batch.render_camera_batch(r, st)
+        batch.render_camera_batch(staged, st)
     torch.cuda.synchronize()
     queued_ms = (time.perf_counter() - t0) * 1e3
     busy = {}
     for what, work in (("step", [step]), ("queued", queued)):
         with torch.profiler.profile(activities=acts) as prof:
             for st in work:
-                batch.render_camera_batch(r, st)
+                batch.render_camera_batch(staged, st)
             torch.cuda.synchronize()
         dev = device_activities(prof)
         if not dev:
@@ -1479,9 +1741,10 @@ def check_rollout(card: str, stats: dict) -> dict:
         f"step ({n_dev} activities), under half the events' time: it missed "
         "the graphs' kernels, and its busy share is not reported")
     log(f"[rollout] cams/s at {N_ROLLOUT_CAMS} cameras, 4 steps a run, runs "
-        f"in turns (graph, host loop, host loop, graph): batch march graphs "
-        f"{cps[False][0]:.2f}, {cps[False][1]:.2f}; host loop (compacted) "
-        f"{cps[True][0]:.2f}, {cps[True][1]:.2f}; launches a step (graph): "
+        f"in turns (staged, full width, full width, staged): staged batch "
+        f"graphs (the default) {cps[True][0]:.2f}, {cps[True][1]:.2f}; "
+        f"full-width batch graphs {cps[False][0]:.2f}, {cps[False][1]:.2f}; "
+        f"launches a step (staged graphs): "
         f"roll {per_step['roll_chunk']:.1f}, rasterize "
         f"{per_step['rasterize_visits']:.1f}, loop control "
         f"{per_step['march_loop']:.1f}, phase 2 "
@@ -2233,8 +2496,10 @@ def check_world_shard(tag: str, lods, plain, devices, where: str,
             f"{sr._exchange_bytes - b0} bytes gathered, "
             f"{t_frames * 1e3:.1f} ms for the {len(cams)} frames with their "
             f"exchanges ({card_line()})")
-    held_run(f"{tag} strict subset, {cams[-1].position}",
-             lambda: sr.render(cams[-1]), stats)
+    with host_loop(sr.inner):
+        held_run(f"{tag} strict subset, {cams[-1].position}",
+                 lambda: sr.render(cams[-1]), stats)
+    check_window_path(tag, sr, plain)
     # (f) the rasterizer on the first chunk of a camera inside the world,
     # its window active: the cells it reads at LOD0 go through the window
     for k, cam in ((k, c) for c in cams[::-1] for k in (0, 1)):
@@ -2251,12 +2516,62 @@ def check_world_shard(tag: str, lods, plain, devices, where: str,
         raise AssertionError(f"[shard] {tag}: no capture holds a LOD0 cell")
     _want, written = raster_both(cap, stats)
     log(f"[shard] (f) {tag}: rasterize_visits with the window "
-        f"{sr.inner._wa.win} (the "
+        f"{sr.inner._wa.win.tolist()} (the "
         f"{'gated group' if cap.gated else 'dense chunk'} after {k} "
         f"iterations, {n_lod0} valid LOD0 cells, {written} texels written) "
         f"== plain, and the previous design on the same cells == plain, 0 "
         f"elements differ")
     return sr
+
+
+SHARD_WINDOW_FRAMES = 12  # the path of the window check
+
+
+def check_window_path(tag: str, sr, plain) -> None:
+    """The world-shard window over the benchmark path at the strict-subset
+    radius, the inner Renderer on the graph route, uncompacted and staged:
+    the window's corner moves with the camera, and the inner march graph's
+    captures and ``memory_reserved`` must not grow with the moves.  The
+    window is a device tensor (``WorldArrays.win``), so a move of the same
+    width is a copy into the graph's own world (``MarchGraph.world``): a
+    variant is captured at most twice (on the Renderer's first world, then
+    on the graph's copy), and the pool stops growing with the last
+    capture."""
+    ref = with_lod0(plain, SHARD_LOD0_RADIUS)
+    sr.inner.lod_distances = ref.lod_distances.copy()
+    sr.inner.far_clip = ref.far_clip
+    path = [path_camera(plain, t)
+            for t in np.linspace(0.0, 1.0, SHARD_WINDOW_FRAMES)]
+    rows = []
+    for compact in (False, True):
+        sr.inner.compact = compact
+        corners, caps, reserved = [], [], []
+        for cam in path:
+            sr.render(cam)
+            corners.append(sr._window_key[:2])
+            caps.append(len(sr.inner._graph.captures))
+            reserved.append(torch.cuda.memory_reserved(sr.inner.device))
+        slots = {(c["direction"], c["widths"])
+                 for c in sr.inner._graph.captures}
+        moves = sum(a != b for a, b in zip(corners, corners[1:]))
+        last = max(i for i in range(len(caps))
+                   if i == 0 or caps[i] != caps[i - 1])
+        moves_after = sum(a != b for a, b in
+                          zip(corners[last:], corners[last + 1:]))
+        if (caps[-1] - caps[0] > 2 * len(slots)
+                or len(set(reserved[last:])) != 1):
+            raise AssertionError(
+                f"[shard] {tag} window path (compact={compact}): corners "
+                f"{corners}, captures {caps}, memory_reserved {reserved}")
+        rows.append((compact, moves, caps[0], caps[-1], moves_after,
+                     reserved[last], reserved[-1]))
+    sr.inner.compact = plain.compact
+    log(f"[shard] {tag} window path, {SHARD_WINDOW_FRAMES} path cameras at "
+        f"lod_distances[0] {SHARD_LOD0_RADIUS:.0f}, the inner Renderer on "
+        f"the graph route (compact, window moves, captures after the first "
+        f"frame and at the end, moves after the last capture, "
+        f"memory_reserved after the last capture and at the end): {rows}; "
+        f"the captures do not grow with the moves ({card_line()})")
 
 
 def time_turns(fns: dict, reps_each: int) -> dict:
@@ -2339,8 +2654,9 @@ def check_camera_sharded(rmesh, where: str, tally: dict, stats: dict) -> None:
     compare_screens("[shard] rollout camera-sharded", [got],
                     [render_camera_batch(r, cams)], stats)
     host = dataclasses.replace(r, compact=True)
-    held_run(f"(e) rollout camera-sharded over {where} (host loop)",
-             lambda: render_camera_batch(host, cams, rmesh=rmesh), stats)
+    with host_loop(host):
+        held_run(f"(e) rollout camera-sharded over {where} (host loop)",
+                 lambda: render_camera_batch(host, cams, rmesh=rmesh), stats)
     steps = [harness.rollout_cameras(2 + s, N_ROLLOUT_CAMS, ROLLOUT_WH, dims)
              for s in range(SHARD_ROLLOUT_STEPS)]
 
@@ -2907,9 +3223,9 @@ def main() -> int:
     # ---- terrain2048: the dense march
     t0 = time.perf_counter()
     terrain_lods = terrain2048(log=log)
-    # the three main paths march on a live-ray index (compact=True; the
-    # Renderer's default is the full-width march, which the small frames and
-    # the oracle check run)
+    # the three main paths march through the staged graph (compact=True,
+    # the Renderer's default on the card); [loop] and a variant of each
+    # small frame run the full-width graph (compact=False)
     terrain = Renderer.create(terrain_lods, main_cfg, device=dev,
                               compact=True)
     log(f"[terrain] device world up in {time.perf_counter() - t0:.1f} s "
@@ -2932,10 +3248,11 @@ def main() -> int:
     t_caps["roll_previous"] = prev_roll["previous design"]
     t_times = time_kernels(t_caps)
     check_lods_past_8(terrain, stats)
-    # [loop]: the default Renderer's march, one graph launch a frame
+    # [loop]: the full-width march, then the staged, a graph launch a frame
     loop: dict = {"kernel": check_loop_kernel(terrain, stats)}
     check_loop(dataclasses.replace(terrain, compact=False), "terrain2048",
                card, stats, loop)
+    check_loop_staged(terrain, "terrain2048", card, stats, loop)
     log(f"[terrain] done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- terrain2048 in ARGB mode: kernel 2 writes the inline colors
@@ -2971,6 +3288,7 @@ def main() -> int:
     check_loop(dataclasses.replace(argb, compact=False, config=(
         dataclasses.replace(argb.config, host_init=True))),
         "terrain2048 ARGB", card, stats, loop)
+    check_loop_staged(argb, "terrain2048 ARGB", card, stats, loop)
     del argb, a_caps, adw
     torch.cuda.empty_cache()
     log(f"[argb] done at {time.perf_counter() - t_start:.1f} s")
@@ -3017,6 +3335,7 @@ def main() -> int:
         "dims": dw.dims, "plain_reps": 1})
     check_loop(dataclasses.replace(layered, compact=False), "layered2048",
                card, stats, loop)
+    check_loop_staged(layered, "layered2048", card, stats, loop)
     log(f"[layered] done at {time.perf_counter() - t_start:.1f} s")
     del g_caps, busiest, f, p2args
     torch.cuda.empty_cache()
@@ -3099,12 +3418,15 @@ def main() -> int:
     kernels.append({
         "name": "march_loop", "route": "cuda", "source": LOOP_KERNEL[1],
         "replaces": LOOP_KERNEL[2],
-        "launches": loop["layered2048"]["launches"]["march_loop"],
+        "launches": l_launches["march_loop"],
         "max_abs_err": stats["march_loop"]["max_abs_err"],
         "ms": lk["ms"], "device_ms": lk["device_ms"],
         "plain_ms": lk["plain_ms"], "bound_ms": lk["bound_ms"],
         "bound_by": lk["bound_by"], "library_ms": lk["library_ms"],
         "launches_by_path": {
+            "terrain2048": t_launches["march_loop"],
+            "terrain2048_argb": a_launches["march_loop"],
+            "layered2048": l_launches["march_loop"],
             **{f"loop {p}": loop[p]["launches"]["march_loop"]
                for p in LOOP_PATHS},
             "rollout64_256x256": rollout["launches"]["march_loop"]}})
@@ -3122,7 +3444,19 @@ def main() -> int:
                 f"{c['direction']:+d} {c['capture_ms']:.2f} / "
                 f"{c['instantiate_ms']:.2f}, {c['pool_bytes']}"
                 for c in v["captures"]) + f" ({card})")
-    log(f"[summary] rollout cams/s (batch march graphs, host loop): "
+        st = v["staged"]
+        log(f"[summary] [loop] {p} staged (widths {st['widths']}) against "
+            f"uncompacted, in turns: frame p50 sequential ms staged "
+            f"{np.round(st['seq_ms'][True], 3).tolist()}, uncompacted "
+            f"{np.round(st['seq_ms'][False], 3).tolist()}; pipelined ms "
+            f"staged {np.round(st['pipe_ms'][True], 3).tolist()}, "
+            f"uncompacted {np.round(st['pipe_ms'][False], 3).tolist()}; "
+            f"staged captures (direction: capture ms, pool bytes) "
+            + ", ".join(f"{c['direction']:+d}: {c['capture_ms']:.2f}, "
+                        f"{c['pool_bytes']}" for c in st["captures"])
+            + f" ({card})")
+    log(f"[summary] rollout cams/s (batch march graphs uncompacted, "
+        f"staged): "
         f"{rollout['cams_per_sec'][False]}, {rollout['cams_per_sec'][True]}, "
         f"the card's time {rollout['card_ms_per_step']:.3f} ms of a "
         f"{rollout['step_ms']:.3f} ms step (busy share "

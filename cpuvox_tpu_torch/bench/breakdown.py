@@ -8,9 +8,10 @@
 be timed through the occupancy-gated and the dense march; ``--argb`` sets
 ``argb_records`` (kernel 2 writes the inline colors, phase 2 skips the
 resolve), ``--device-init`` builds the rays on the device
-(``host_init=False``), and ``--compact`` marches on a live-ray index
-(``Renderer.create(compact=True)``) where the default marches every ray slot
-to the end.  Five passes over the same frames of the benchmark
+(``host_init=False``), and ``--compact`` marches through the staged march
+graph (``Renderer.create(compact=True)``: stages of halving width on a
+live-ray index, packed on the card) where the default graph marches every
+ray slot to the end.  Five passes over the same frames of the benchmark
 path, on one card:
 
 1. stages, host clock with a ``torch.cuda.synchronize()`` after each: setup
@@ -19,12 +20,14 @@ path, on one card:
    iterations counted by the rasterize kernel's launches: its wrapper's
    count plus the march graph's iterations from the device counter,
    ``ops/march_loop.kernel_launches``; the rays
-   rewound on the gated march, index rebuilds and mean ray slots a chunk)
-   and phase 2 (reproject, resolve, upscale);
+   rewound on the gated march, the staged graph's iterations by stage width
+   and mean ray slots an iteration) and phase 2 (reproject, resolve,
+   upscale);
 2. whole frames unprofiled, host clock: the wall time of the pass;
-3. whole frames with and without live-ray compaction in turns (the order
-   swaps every frame), host clock, before the profiler is ever on: each
-   side's frame p50 and the pairs the compacted march wins; then whole
+3. whole frames through the staged march graph and the uncompacted one in
+   turns (the order swaps every frame; one MarchGraph holds both
+   variants), host clock, before the profiler is ever on: each side's
+   frame p50 and the pairs the staged march wins; then whole
    frames with phase 2 through the fused kernel and through its previous
    design (``reproject_kernel.reproject_screen_two_pass``) in turns, and
    the two phase 2s alone on the same raybuffer: each side's p50;
@@ -34,8 +37,8 @@ path, on one card:
    (the profiler slows the host, so its own wall is printed but not used);
 5. the phase-1 march alone under ``torch.profiler``, frame setups made
    beforehand: device activities per chunk of the dense march or per gated
-   iteration (one rasterize launch a chunk or iteration; the default march
-   is one graph launch a frame, ``--compact`` launches each from the host),
+   iteration (one rasterize launch a chunk or iteration; either march is
+   one graph launch a frame),
    and the march's device busy time over pass 1's
    march time; then phase 2 alone on those marches' raybuffers, as the
    renderer runs it and through its plain torch version: device
@@ -141,8 +144,7 @@ def main(argv=None) -> int:
     print("t, setup_ms, march_ms, phase2_ms, chunks, rewinds, rays, direction")
     rows = []
     stats = raymarch.gated_stats
-    cstats = raymarch.compact_stats
-    cstats.update(rebuilds=0, chunks=0, ray_slots=0)
+    march_loop.stage_stats.reset()
     for t, cam in zip(ts, cams):
         sync()
         t0 = time.perf_counter()
@@ -165,11 +167,12 @@ def main(argv=None) -> int:
               flush=True)
     med = np.median(np.array(rows, dtype=np.float64), axis=0)
     tot = np.sum(np.array(rows, dtype=np.float64), axis=0)
-    rebuilds = cstats["rebuilds"] / len(cams)
-    mean_rays = cstats["ray_slots"] / max(cstats["chunks"], 1)
-    print(f"compaction: {rebuilds:.2f} index rebuilds a frame, mean "
-          f"{mean_rays:.1f} of {renderer.ray_capacity} ray slots a chunk",
-          flush=True)
+    by_width = march_loop.stage_stats.read()
+    n_it = max(sum(by_width.values()), 1)
+    mean_rays = sum(w * n for w, n in by_width.items()) / n_it
+    print(f"march graph: iterations by stage width {by_width}, mean "
+          f"{mean_rays:.1f} of {renderer.ray_capacity} ray slots an "
+          f"iteration", flush=True)
 
     def render(cam, compact=compact):  # a whole frame, as render_device
         f = renderer.frame_setup(cam)
@@ -195,8 +198,9 @@ def main(argv=None) -> int:
             sync()
             paired[c].append((time.perf_counter() - t0) * 1e3)
     on, off = np.array(paired[True]), np.array(paired[False])
-    print(f"compaction in turns: frame p50 {np.median(on):.3f} ms compacted, "
-          f"{np.median(off):.3f} ms not; the compacted march is faster in "
+    print(f"staged and uncompacted graphs in turns: frame p50 "
+          f"{np.median(on):.3f} ms staged, {np.median(off):.3f} ms "
+          f"uncompacted; the staged march is faster in "
           f"{int((on < off).sum())} of {len(cams)} pairs, median difference "
           f"{np.median(on - off):+.3f} ms")
 
@@ -312,8 +316,8 @@ def main(argv=None) -> int:
         "paired_frame_ms_p50_phase2_previous": float(np.median(pr)),
         "paired_phase2_fused_wins": int((fu < pr).sum()),
         "paired_phase2_ms_p50": p2_med,
-        "compact": compact, "index_rebuilds_per_frame": rebuilds,
-        "mean_ray_slots_per_chunk": mean_rays,
+        "compact": compact, "stage_iterations": by_width,
+        "mean_ray_slots_per_iteration": mean_rays,
         "kernel_device_ms_launches_us": per_launch,
         "frames": args.frames,
         "resolution": list(wh), "occupancy_on": renderer.occupancy_on,

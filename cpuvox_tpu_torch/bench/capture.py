@@ -7,9 +7,10 @@ resolves), then rolls the next one and keeps what its rasterize call gets: the
 chunk's visits on the dense march, the packed group of gated cells on the
 gated march (``src``), and the same cells with their column records fetched
 by torch (``cells``), the input of the previous kernel design.  Unless ``compact`` is False the march
-compacts its live rays as a Renderer created with ``compact=True`` does, so
-a capture deep enough into a frame holds the live-ray index its kernels are
-given.  ``chip_smoke.py`` and the ``cuda`` tests use
+compacts its live rays as the host loop does (``raymarch.live_rays``: an
+ascending index of the live rays, rebuilt when their count halves), so a
+capture deep enough into a frame holds a live-ray index like those the
+kernels are given.  ``chip_smoke.py`` and the ``cuda`` tests use
 it.
 """
 from __future__ import annotations

@@ -31,17 +31,19 @@ Knobs, ``bench.py``'s names and defaults: ``BENCH_WH`` (1920x1080),
 ``BENCH_FRAMES`` (24), ``BENCH_CHUNK`` and ``BENCH_MAX_CHUNKS`` (0: the
 Renderer's choice), ``BENCH_OCC`` (auto), ``BENCH_VERIFY`` (1),
 ``BENCH_DEADLINE_S`` (1500 s from the process's start); and the port's
-``BENCH_COMPACT=1`` (the march on a live-ray index: the flythrough, the
-rollout and the dynamic world) and ``BENCH_EXACT_LOD1=1`` (the dynamic
-world's voxel-exact LOD1).
+``BENCH_COMPACT`` (unset: the Renderer's default, which on the card is
+the staged march graph, stages of halving width on a live-ray index
+packed on the card; ``0`` the full-width graph, ``1`` the staged one: the
+flythrough, the rollout and the dynamic world; run the two settings in
+turns to compare them) and ``BENCH_EXACT_LOD1=1`` (the dynamic world's
+voxel-exact LOD1).
 
 The flythrough's ``value`` is the sequential fps, and its record carries
 both of ``bench.py``'s passes (``bench.py:406-413``): ``fps_seq``, a sync
 after each frame, and ``fps_pipe``, frame i dispatched before frame i-1 is
 waited for (``bench/harness.run_flythrough``; the default Renderer's frame
-reads nothing from the device, so the host's work on a frame overlaps the
-card's on the one before; with ``BENCH_COMPACT=1`` the march reads the live
-count once a chunk and the two passes come out alike).  Before the flythrough the
+reads nothing from the device, staged or not, so the host's work on a
+frame overlaps the card's on the one before).  Before the flythrough the
 verify gate (``bench.py:177-200``) renders one camera through the kernels
 and through the plain versions and refuses to report where the screens or
 the raybuffers differ.  Any exception, and any magenta (unwritten) pixel,
@@ -140,7 +142,7 @@ class Knobs:
     max_chunks: int = 0
     occ: str = "auto"
     verify: bool = True
-    compact: bool = False
+    compact: bool | None = None  # None: the Renderer's own setting
     exact_lod1: bool = False
 
     @classmethod
@@ -151,7 +153,8 @@ class Knobs:
                    max_chunks=int(env.get("BENCH_MAX_CHUNKS", "0")),
                    occ=env.get("BENCH_OCC", "auto"),
                    verify=env.get("BENCH_VERIFY", "1") == "1",
-                   compact=env.get("BENCH_COMPACT", "0") == "1",
+                   compact={"1": True, "0": False}.get(
+                       env.get("BENCH_COMPACT", "")),
                    exact_lod1=env.get("BENCH_EXACT_LOD1", "0") == "1")
 
 

@@ -212,7 +212,7 @@ def rollout_cameras(step: int, n_cams: int = 64, wh=(256, 256),
     return out
 
 
-def rollout_renderer(wh=(256, 256), device="cuda", compact: bool = False,
+def rollout_renderer(wh=(256, 256), device="cuda", compact: bool | None = None,
                      **config):
     """A Renderer over the rollout's world at ``wh`` (``bench.py:217-219``)."""
     from cpuvox_tpu_torch.config import RenderConfig
@@ -279,7 +279,7 @@ def dynamic_camera(dims, wh=(1280, 720)):
 
 
 def dynamic_terrain(size: int = 512, wh=(1280, 720), device="cuda",
-                    exact_lod1: bool = False, compact: bool = False):
+                    exact_lod1: bool = False, compact: bool | None = None):
     """``bench.py:262-263``'s DynamicTerrain (512 x 128 x 512, depth 6)."""
     from cpuvox_tpu_torch.config import RenderConfig
     from cpuvox_tpu_torch.models.dynamic_demo import DynamicTerrain

@@ -1025,9 +1025,11 @@ struct World {
   const int* grid_z;    // (8,) columns per x-row of each LOD
   int rw, fmt, maxr, mcc;
   int rwords;  // inline: the run region's words; the colors follow
-  // a world-sharded active world's tile window (raymarch._cell_index): the
-  // corner tile, log2 of the tile side and W tiles a side; W 0 for none
-  int win_tx0, win_tz0, win_tl, win_w;
+  // a world-sharded active world's tile window (raymarch._cell_index), (4,)
+  // int32 on the device: the corner tile (x, z), log2 of the tile side and
+  // W tiles a side; null for none.  On the device, so that a window move
+  // is a copy into the captured march graph's buffer, not a new capture
+  const int* win;
 };
 
 // raymarch._cell_index of a visited cell at LOD0 resolution (x, z): the
@@ -1038,13 +1040,13 @@ __device__ __forceinline__ int cell_index(const World& w, int x, int z,
                                           int v_lod) {
   const int lc = v_lod < 0 ? 0 : (v_lod > 7 ? 7 : v_lod);
   const int xc = x >> v_lod, zc = z >> v_lod;
-  if (w.win_w > 0 && v_lod == 0) {
-    const int tl = w.win_tl;
+  if (w.win != nullptr && v_lod == 0) {
+    const int tl = __ldg(w.win + 2), ww = __ldg(w.win + 3);
     const int tmask = (1 << tl) - 1;
-    const int txr = (xc >> tl) - w.win_tx0;
-    const int tzr = (zc >> tl) - w.win_tz0;
-    const bool inw = txr >= 0 && txr < w.win_w && tzr >= 0 && tzr < w.win_w;
-    const int slot = inw ? txr * w.win_w + tzr : w.win_w * w.win_w;
+    const int txr = (xc >> tl) - __ldg(w.win);
+    const int tzr = (zc >> tl) - __ldg(w.win + 1);
+    const bool inw = txr >= 0 && txr < ww && tzr >= 0 && tzr < ww;
+    const int slot = inw ? txr * ww + tzr : ww * ww;
     return (slot << (2 * tl)) + ((xc & tmask) << tl) + (zc & tmask);
   }
   return __ldg(w.col_base + lc) + xc * __ldg(w.grid_z + lc) + zc;
@@ -1230,15 +1232,16 @@ extern "C" int cpuvox_rasterize_chunk(
 // visits: layout (a), or null and packed + proc: layout (b).  rec/rw/fmt:
 // the record table of the direction; runs: the split layout's flat run
 // array of the direction (else null); rwords: the inline run region's words;
-// win_*: the world-shard tile window (win_w 0 for none);
+// win: the world-shard tile window, (4,) int32 on the device (null for
+// none);
 // cam_y_ray / cam_y_norm_ray: (R,) f32 a ray, or null for the scalars.
 extern "C" int cpuvox_rasterize_visits(
     void* raybuf, void* nfp_min, void* nfp_max, void* fb_min, void* fb_max,
     void* f_active, void* fdir_min, void* fdir_max, void* alive,
     void* plane_bottom, void* plane_top, void* plane_dir, void* visits,
     void* packed, void* proc, int C, void* rec, int rw, int fmt, void* runs,
-    int maxr, int rwords, int mcc, void* col_base, void* grid_z, int win_tx0,
-    int win_tz0, int win_tl, int win_w, float world_max_y, float cam_y,
+    int maxr, int rwords, int mcc, void* col_base, void* grid_z, void* win,
+    float world_max_y, float cam_y,
     float cam_y_norm, int has_solid, float solid_min_y, float solid_max_y,
     int dir, void* cam_y_ray, void* cam_y_norm_ray, void* index, int Rk,
     int P, void* stream) {
@@ -1246,7 +1249,7 @@ extern "C" int cpuvox_rasterize_visits(
     const World w{static_cast<const int*>(rec), static_cast<const int*>(runs),
                   static_cast<const int*>(col_base),
                   static_cast<const int*>(grid_z), rw, fmt, maxr, mcc,
-                  rwords, win_tx0, win_tz0, win_tl, win_w};
+                  rwords, static_cast<const int*>(win)};
     const CellSrc cs{static_cast<const int*>(visits),
                      static_cast<const int*>(packed),
                      static_cast<const uint8_t*>(proc), C};

@@ -28,7 +28,7 @@ class DynamicTerrain:
     @classmethod
     def create(cls, dims=(512, 128, 512), depth: int = 6, seed: int = 11,
                config: RenderConfig | None = None, device="cuda",
-               exact_lod1: bool = False, compact: bool = False):
+               exact_lod1: bool = False, compact: bool | None = None):
         """``exact_lod1`` False is the demo's and the benchmark's setting, as
         the reference pins it (``models/dynamic_demo.py:38-47``: its max_runs
         9 records stalled the TPU march); True builds the voxel-exact LOD1."""

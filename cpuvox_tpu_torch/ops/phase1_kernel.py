@@ -19,8 +19,8 @@ group's ``PackedCells``, and reads and unpacks each cell's column record
 from the world tables itself (inline int32 runs, 16-bit packed runs, the
 split layout), so the march runs no torch column fetch.  On the dense march
 it works out each cell's column index from the visit, through the tile
-window of a world-sharded active world (``WorldArrays.win``) where there is
-one; a gated group's rows carry the index ``raymarch.gated_group`` made.
+window of a world-sharded active world (``WorldArrays.win``, read from the
+device) where there is one; a gated group's rows carry the index ``raymarch.gated_group`` made.
 The lanes split the texel work, work out a cell's runs side by side in a
 world of more than 8 runs a column, and keep a written-texel bitmask of the
 ray's row in shared memory for the frontier scans.  Its plain version,
@@ -78,7 +78,7 @@ _CHUNK_ARGTYPES = ([_P] * 21 + [_F, _F, _F, _I, _F, _F, _I, _I, _I, _I, _P,
 # 9 state + 3 static pointers; visits, packed, proc, C; the world and its
 # tile window; scalars; the per-ray camera height (or nulls)
 _VISITS_ARGTYPES = ([_P] * 12 + [_P, _P, _P, _I, _P, _I, _I, _P, _I, _I, _I,
-                                 _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _F,
+                                 _P, _P, _P, _F, _F, _F, _I, _F,
                                  _F, _I, _P, _P, _P, _I, _I, _P])
 
 
@@ -188,7 +188,8 @@ def rasterize_visits(rs: rm.RasterState, wa: rm.WorldArrays, cells,
               maxr, rwords, mcc,
               g(wa.col_base, torch.int32, (8,), "col_base"),
               g(wa.grid_z, torch.int32, (8,), "grid_z"),
-              *(wa.win or (0, 0, 0, 0)),
+              None if wa.win is None
+              else g(wa.win, torch.int32, (4,), "win"),
               *_scalars(consts, iteration_direction), *_cam_y_ptrs(consts, R),
               None if index is None else g(index, torch.int32, (Rk,), "index"),
               Rk, P, _build.stream_ptr(rs.raybuf))

@@ -17,9 +17,11 @@ A direction group is the JAX batch's device program (``_batch_frame_fn``):
   of two at or above its size, capped at the batch's (``batch.py:138-163``),
   so that a new pitch split finds its march already built;
 - on the graph route (``Renderer.graph_route``: a CUDA Renderer with the
-  kernels on and compaction off) the march is one launch of a batch march
-  graph (``Renderer.march_batch_graph``); the CPU, the plain versions and
-  ``compact=True`` march on the host loop (``Renderer.march_rays``);
+  kernels on) the march is one launch of a batch march graph
+  (``Renderer.march_batch_graph``), staged at the group's bucketed ray
+  count when the Renderer compacts, as JAX's batch compacts through
+  ``phase1_pallas`` (``batch.py:85``); the CPU and the plain versions march
+  on the host loop (``Renderer.march_rays``);
 - phase 2 runs over the real cameras only, one launch
   (``reproject_kernel.reproject_screens``).
 
@@ -55,7 +57,8 @@ def march_group(renderer, frames, direction: int, bucket: int, wa=None,
     block b, the padded cameras' last.  The rays are built in one pass on
     ``device`` (the Renderer's for None), then marched against ``wa`` (a
     replica of the Renderer's world there; its own for None) through a
-    batch march graph on the graph route, else on the host loop."""
+    batch march graph on the graph route (staged where the Renderer
+    compacts), else on the host loop."""
     device = torch.device(renderer.device if device is None else device)
     R1 = renderer.ray_capacity
     p = device_init.stack_frame_params(

@@ -15,8 +15,12 @@ camera-local window of them fetched for the frame (the counterpart of
   active world on the rendering device: the window blocks, an all-empty
   sentinel block, then the coarse rows.  The march finds a LOD0 column by
   arithmetic on the window (``raymarch._cell_index`` with
-  ``WorldArrays.win``; in the kernel ``csrc/rasterize.cu::cell_index``).
-  The window is memoized by its corner: a still camera exchanges nothing.
+  ``WorldArrays.win``, a device tensor; in the kernel
+  ``csrc/rasterize.cu::cell_index``).  The window is memoized by its
+  corner: a still camera exchanges nothing.  A window that moves keeps its
+  width, and so the active world's layout: the inner Renderer's march graph
+  copies the new tables and window into its own (``MarchGraph.world``) and
+  captures nothing anew.
 
 Where JAX psum-gathers owner-masked tiles over the mesh, the exchange here
 is one ``index_select`` an owner of the window tiles it holds, copied to the
@@ -355,7 +359,7 @@ class ShardedRenderer:
             rec_fwd=fine_plus_coarse("fwd"), rec_rev=fine_plus_coarse("rev"),
             colors=colors, max_runs=int(sw.max_runs), occ_tiles=occ,
             tile_base=tile_base, tile_gz=tile_gz,
-            win=(int(tx0), int(tz0), sw.tl, int(w)))
+            win=put(np.array([tx0, tz0, sw.tl, w], np.int32)))
         self.inner._wa = wa
         if self.ray_mesh is not None:
             # composed mode: the active window replicated over the ray mesh

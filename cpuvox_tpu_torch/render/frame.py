@@ -8,14 +8,15 @@ nearest upscale of a ``render_scale`` frame, with the kernels one launch
 (``ops/reproject_kernel.reproject_screen``).  The march is the dense one
 (roll -> fetch -> rasterize per chunk) or, where ``occupancy_on`` resolves
 true, the occupancy-gated one (``raymarch.march_gated``); both give the
-same raybuffer.  On a CUDA Renderer with the kernels and compaction off
-(the default) the march is one launch of the Renderer's march graph
-(``march_graph.py``) and the host rays go up from pinned memory
-(``ray_init.RayStaging``), so ``render_device`` reads nothing from the
-device and returns before the frame is done; otherwise (the CPU, the plain
-versions, ``compact=True``: a live-ray index) the host drives the march
-(``graph_route``).  A camera batch (``parallel/batch.py``) marches each
-direction group through a batch graph of its own (``march_batch_graph``).
+same raybuffer.  On a CUDA Renderer with the kernels the march is one
+launch of the Renderer's march graph (``march_graph.py``), at full width
+or, with ``compact``, in stages of halving width on a live-ray index, and
+the host rays go up from pinned memory (``ray_init.RayStaging``), so
+``render_device`` reads nothing from the device and returns before the
+frame is done; on the CPU and with the plain versions the host drives the
+march (``graph_route``).  A camera batch (``parallel/batch.py``) marches
+each direction group through a batch graph of its own
+(``march_batch_graph``).
 In ARGB mode (``argb_records`` on a world whose columns hold few enough
 voxels, ``argb_on``) the records carry the columns' colors, phase 1 writes
 final colors and phase 2 samples them with no resolve.
@@ -97,10 +98,11 @@ class Renderer:
     lod_distances: np.ndarray | None = None
     far_clip: float = 0.0
     _wa: raymarch.WorldArrays | None = None
-    # live-ray compaction in the march.  Off unless asked for: on an H100 the
-    # march is bound by the host's launches, and the index adds some (31 to a
-    # gated iteration), so the device time it saves does not reach the frame
-    compact: bool = False
+    # live-ray compaction in the march: in a march graph, stages of halving
+    # width (``raymarch.stage_widths``); on the host loop, an index rebuilt
+    # when the live count halves.  None: as ``compacts`` resolves it.  The
+    # raybuffer is the same either way
+    compact: bool | None = None
     # the march graph (``march_graph.py``), a camera batch's march graphs
     # by (rays, texels, device), and the host rays' staging (by ray count
     # and device); not copied by ``dataclasses.replace``
@@ -113,7 +115,7 @@ class Renderer:
 
     @classmethod
     def create(cls, lods, config: RenderConfig = RenderConfig(),
-               device="cuda", compact: bool = False):
+               device="cuda", compact: bool | None = None):
         _check_supported(config)
         dw = world_device.build_device_world(
             lods, skybox_rgb=config.skybox_rgb,
@@ -125,7 +127,7 @@ class Renderer:
 
     @classmethod
     def from_arrays(cls, wa: raymarch.WorldArrays, dims, config: RenderConfig,
-                    device="cuda", compact: bool = False, lod_distances=None,
+                    device="cuda", compact: bool | None = None, lod_distances=None,
                     far_clip: float = 0.0):
         """A Renderer over given world arrays (the dynamic worlds of
         ``world/dynamic.py``; the JAX package builds these through
@@ -282,33 +284,51 @@ class Renderer:
             static, dda, alive0 = self.init_rays_device(f, R=R, device=device)
         return f._replace(static=static, dda=dda, alive0=alive0)
 
-    def graph_route(self, device=None, compact: bool | None = None) -> bool:
+    def graph_route(self, device=None) -> bool:
         """Whether a march on ``device`` (the Renderer's for None) is a
-        launch of a march graph: a CUDA device with the kernels on and
-        compaction off (``compact`` None: as the Renderer was created).
-        Elsewhere the host drives the loop."""
+        launch of a march graph: a CUDA device with the kernels on, the
+        march compacted or not.  Elsewhere (the CPU, the plain versions)
+        the host drives the loop."""
         device = torch.device(self.device if device is None else device)
-        compact = self.compact if compact is None else compact
-        return device.type == "cuda" and self.kernels and not compact
+        return device.type == "cuda" and self.kernels
+
+    def compacts(self, graph: bool) -> bool:
+        """Live-ray compaction resolved against where the march runs, as
+        ``occupancy_on`` resolves the gate: ``compact`` where it was given;
+        else in a march graph (``graph``) yes, on the host loop no.  On the
+        H100 the staged graph was no slower than the full-width one on
+        either march kind (terrain2048 dense and layered2048 gated at 1080p,
+        sequential and pipelined, in turns: ``PERF.md`` §6); on the host
+        loop each index rebuild adds launches that a host-bound frame pays
+        (``PERF.md`` §6)."""
+        return graph if self.compact is None else self.compact
+
+    def stage_widths(self, R: int, compact: bool | None = None) -> tuple:
+        """The march graph's stage widths for ``R`` rays: the full width
+        alone, or with ``compact`` (None: ``compacts``) the halving schedule
+        ``raymarch.stage_widths``."""
+        compact = self.compacts(graph=True) if compact is None else compact
+        return raymarch.stage_widths(R) if compact else (R,)
 
     def march(self, f: FrameSetup, compact: bool | None = None) -> torch.Tensor:
         """Phase 1 of a frame: the raybuffer (R, P) int32 of color indices,
         or in ARGB mode of final colors.  ``compact`` True marches on a
         live-ray index, False marches every ray slot to the end, None does as
-        the Renderer was created (``compact=``); the raybuffer is the same.
+        the Renderer resolves it (``compacts``); the raybuffer is the same.
         On the graph route (``graph_route``) the march is one launch of the
-        march graph (``march_graph``), with no host read; otherwise the host
-        drives the loop."""
-        if self.graph_route(compact=compact):
-            return self.march_graph(f)
+        march graph (``march_graph``), staged when it compacts, with no host
+        read; otherwise the host drives the loop."""
+        if self.graph_route():
+            return self.march_graph(f, compact)
         return self.march_rays(f.static, f.dda, f.alive0, f.cam_data,
                                f.cam_data.position[1], f.iteration_direction,
                                compact)
 
-    def march_graph(self, f: FrameSetup) -> torch.Tensor:
+    def march_graph(self, f: FrameSetup,
+                    compact: bool | None = None) -> torch.Tensor:
         """``march`` through the Renderer's ``MarchGraph``: buffers at the
         frame's ray count, one captured graph a variant (on a CPU device its
-        plain version, the host reading the condition)."""
+        plain version, the host reading the conditions)."""
         R = f.static.dirs.shape[0]
         P = max(self.render_wh)
         g = self._graph
@@ -317,18 +337,21 @@ class Renderer:
                                          self.solid_bounds, self.device)
         return self._graph_march(g, self._wa, f.cam_data,
                                  f.iteration_direction, f.static, f.dda,
-                                 f.alive0, f.cam_data.position[1])
+                                 f.alive0, f.cam_data.position[1],
+                                 compact=compact)
 
     def march_batch_graph(self, static, dda, alive0, cam_y, cam_y_norm,
                           cam_data, iteration_direction: int,
-                          wa: raymarch.WorldArrays | None = None):
+                          wa: raymarch.WorldArrays | None = None,
+                          compact: bool | None = None):
         """A camera batch's march (``parallel/batch.py``) on the rays'
         device through one of the Renderer's batch graphs, a ``MarchGraph``
         for each (rays, texels, device), kept apart from the single frame's
         so that neither evicts the other.  ``cam_y`` and ``cam_y_norm`` are
         (R,) tensors a ray (``device_init.init_rays_batch``); the LOD
         distances and far clip are ``cam_data``'s; the world is the
-        Renderer's or ``wa``, a replica of it on that device."""
+        Renderer's or ``wa``, a replica of it on that device; staged as
+        ``compact`` says (None: ``compacts``) at the group's ray count."""
         R, P = static.dirs.shape[0], max(self.render_wh)
         dev = static.dirs.device
         g = self._batch_graphs.get((R, P, dev))
@@ -337,25 +360,27 @@ class Renderer:
                 R, P, self.device_world.dims[1], self.solid_bounds, dev)
         return self._graph_march(g, self._wa if wa is None else wa, cam_data,
                                  iteration_direction, static, dda, alive0,
-                                 cam_y, cam_y_norm)
+                                 cam_y, cam_y_norm, compact)
 
     def _graph_march(self, g: MarchGraph, wa, cam_data,
                      iteration_direction: int, static, dda, alive0, cam_y,
-                     cam_y_norm=None) -> torch.Tensor:
+                     cam_y_norm=None, compact: bool | None = None):
         """The march of these rays through ``g``'s variant for the
-        Renderer's settings, captured on its first use."""
-        kw = self.march_kwargs(compact=False)
+        Renderer's settings and stage schedule, captured on its first
+        use."""
+        kw = self.march_kwargs()
         v = g.variant(wa, cam_data.lod_distances, cam_data.far_clip,
                       kw["dims"], iteration_direction, kw["chunk"],
-                      kw["max_chunks"], kw["gated_cells"])
+                      kw["max_chunks"], kw["gated_cells"],
+                      self.stage_widths(static.dirs.shape[0], compact))
         return g.march(v, static, dda, alive0, cam_y, cam_y_norm)
 
     def march_kwargs(self, compact: bool | None = None) -> dict:
         """The keywords of ``raymarch.phase1`` that the Renderer resolves:
         the chunk and its budget, the dims, the raybuffer width, the solid
         bounds, kernels or plain versions, the gated group (0: the dense
-        march) and compaction (``compact`` None: as the Renderer was
-        created)."""
+        march) and the host loop's compaction (``compact`` None:
+        ``compacts``)."""
         chunk, max_chunks = self.march_params
         smin, smax = self.solid_bounds
         return dict(
@@ -363,7 +388,8 @@ class Renderer:
             pixel_len=max(self.render_wh), solid_min_y=smin,
             solid_max_y=smax, kernels=self.kernels,
             gated_cells=self.gated_group_cells if self.occupancy_on else 0,
-            compact=self.compact if compact is None else compact)
+            compact=self.compacts(graph=False) if compact is None
+            else compact)
 
     def march_rays(self, static, dda, alive0, cam_data, cam_y,
                    iteration_direction: int, compact: bool | None = None,
@@ -383,11 +409,10 @@ class Renderer:
     def render_device(self, cam: cm.Camera):
         """Render one frame on the device.  Returns (screen (H, W) int32 ARGB
         bits, raybuffer (R, P) int32 of color indices or, in ARGB mode, of
-        colors, frame geometry).  On a CUDA Renderer with the kernels and
-        compaction off it returns before the frame is done and reads
-        nothing from the device: the rays go up from pinned memory, the
-        march is one graph launch, phase 2 one kernel launch; the
-        raybuffer is the frame's own."""
+        colors, frame geometry).  On a CUDA Renderer with the kernels it
+        returns before the frame is done and reads nothing from the device:
+        the rays go up from pinned memory, the march is one graph launch,
+        phase 2 one kernel launch; the raybuffer is the frame's own."""
         f = self.frame_setup(cam)
         raybuf_idx = self.march(f)
         return self.phase2(f, raybuf_idx), raybuf_idx, (

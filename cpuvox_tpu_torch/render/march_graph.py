@@ -3,43 +3,57 @@
 The port of the JAX package's in-graph march: there the march is a
 ``lax.while_loop`` whose condition lives on the device
 (``cpuvox_tpu/render/raymarch.py:928-957``, and ``:1542``/``:1583`` for the
-gated march), so a frame never asks the host and the harness can dispatch
-frame i before it waits for frame i-1 (``cpuvox_tpu/bench/harness.py:46-71``).
-Here the loop is a CUDA graph with a conditional WHILE node whose condition
-a hand-written kernel sets (``csrc/march_loop.cu``).
+gated march), or with its staged live-ray compaction
+(``phase1_pallas``, ``:1010-1024``, ``:1085-1092``, ``:1583-1605``) a
+while_loop a stage width, so a frame never asks the host and the harness
+can dispatch frame i before it waits for frame i-1
+(``cpuvox_tpu/bench/harness.py:46-71``).  Here the loop is a CUDA graph
+with a conditional WHILE node a stage whose condition a hand-written
+kernel sets (``csrc/march_loop.cu``).
 
 A ``MarchGraph`` belongs to a Renderer (``Renderer.march`` on a CUDA
-Renderer with the kernels and compaction off; a camera batch's march,
-``parallel/batch.py``, on such a Renderer in a graph of its own at the
-group's bucketed ray count).  It holds static buffers at
-the frame's ray count: the rays (``RayStatic``), the loop's state
-(``raymarch.MarchState``: the DDA, the liveness, the raster state, the
-iteration counter, the rewind count) and the per-ray camera height the
-rasterizer and the gate read.  For each variant, an iteration direction
-with the dense or the gated march, it captures with
-``torch.cuda.CUDAGraph(keep_graph=True)``, after one eager warm iteration on
-dead rays:
+Renderer with the kernels; a camera batch's march, ``parallel/batch.py``,
+on such a Renderer in a graph of its own at the group's bucketed ray
+count).  It holds static buffers at the frame's ray count: the rays
+(``RayStatic``), the loop's state (``raymarch.MarchState``: the DDA, the
+liveness, the raster state, the iteration counter, the rewind count), the
+per-ray camera height the rasterizer and the gate read, and a live-ray
+index buffer a stage width below the full one.  A variant is an iteration
+direction, the dense or the gated march, and a stage schedule: the full
+width alone (the uncompacted march), or ``raymarch.stage_widths`` (the
+compacted one).  For each variant it captures with
+``torch.cuda.CUDAGraph(keep_graph=True)``, after one eager warm iteration a
+stage on dead rays:
 
 - the prologue: the raster state reset from the rays, the rewind count 0;
-- the body: one iteration without its control (``raymarch.march_body`` or
-  ``gated_body``) with the next state written back into the buffers
+- a body a stage: one iteration without its control (``raymarch.
+  march_body`` or ``gated_body``) on the stage's index buffer (none at the
+  full width) with the next state written back into the buffers
   (``raymarch.write_state``);
+- a pack between two stages (``pack``): the live rays, then dead ones,
+  each in ascending order, scattered by a cumsum rank into the next
+  stage's index buffer (``raymarch.stage_index``'s result, with no sort
+  and no host read);
 
 and ``ops/march_loop.MarchGraphExec`` instantiates the parent graph: the
-prologue, the control kernel (the condition before the first iteration:
-no iteration runs when no ray lives), and a WHILE node over the body and
-the control kernel, which folds ``alive &= rs.alive``, counts the iteration
-and sets the condition; the device counter enforces the budget.  All the
-variants of a MarchGraph capture into one private pool: they never run at
-once, and a body's temporaries are dead by its end.
+prologue, then a stage at a time the control kernel (the check before the
+stage's first iteration: no iteration runs when no more rays live than the
+next stage holds), a WHILE node over the body and the control kernel,
+which folds ``alive &= rs.alive``, counts the iteration and the live rays
+and sets the condition, and the pack.  The device counter runs on across
+the stages and enforces the budget, so a staged frame runs the iterations
+an uncompacted one does; each stage writes the counter at its exit into
+the variant's ``exits`` buffer.  All the variants of a MarchGraph capture
+into one private pool: they never run at once, and a body's temporaries
+are dead by its end.
 
 A frame copies its rays into the buffers (device-to-device, no host read),
 fills the camera height (a camera batch copies a height a ray, and its
 quotient by the world's height, both made with its rays), launches the
-graph, adds the iteration and rewind
-counts to the stats on the device, and fills the skybox into a new tensor,
-so the raybuffer it returns does not alias the buffers that the next frame
-overwrites.  Phase 2 follows as an eager launch on the same stream.
+graph, adds the iteration, stage and rewind counts to the stats on the
+device, and fills the skybox into a new tensor, so the raybuffer it
+returns does not alias the buffers that the next frame overwrites.  Phase
+2 follows as an eager launch on the same stream.
 
 What a capture bakes in is the variant's key: the world arrays (the same
 object), the chunk, the budget, the gated group, the LOD distances, the
@@ -50,10 +64,10 @@ refreshed in place from each new set of the same layout (``world``), so a
 swap costs a copy a table and no capture.  A failed capture,
 instantiation or launch raises.
 
-On a CPU device the same buffers and the same in-place iteration run with
-the host reading the condition (``march``): the plain version of the graph,
-which the CPU tests hold against the functional ``march_step`` /
-``gated_step`` loop and against the JAX package.
+On a CPU device the same buffers, stages, packs and in-place iteration run
+with the host reading each condition (``march``): the plain version of the
+graph, which the CPU tests hold against the functional ``march_step`` /
+``gated_step`` loop, the host loop and the JAX package.
 """
 from __future__ import annotations
 
@@ -82,12 +96,21 @@ def _same_layout(a: rm.WorldArrays, b: rm.WorldArrays) -> bool:
 
 class _Variant(NamedTuple):
     """One captured variant: the settings it baked in, its loop's
-    ``MarchArgs`` (the world arrays among them), and the instantiated graph
-    (None on a CPU device)."""
+    ``MarchArgs`` (the world arrays among them), its stage widths, the
+    (stages,) int32 buffer of the counter at each stage's exit, and the
+    instantiated graph (None on a CPU device)."""
 
     key: tuple
     args: rm.MarchArgs
+    widths: tuple
+    exits: torch.Tensor
     exec: object = None
+
+
+def thresholds(widths) -> list:
+    """Each stage's loop threshold: the next stage's width, 0 for the
+    last (``raymarch.py:1126-1129``)."""
+    return [*widths[1:], 0]
 
 
 class MarchGraph:
@@ -116,7 +139,11 @@ class MarchGraph:
         self.consts = rm.raster_consts(world_max_y, np.zeros(R, np.float32),
                                        smin, smax, dev)
         self.world_max_y = np.float32(world_max_y)
-        self.variants: dict[tuple[int, int], _Variant] = {}
+        self.variants: dict[tuple, _Variant] = {}
+        # a stage's live-ray index buffer by width, one slot more (the
+        # pack's discard), and the ray numbers the pack scatters
+        self._index: dict[int, torch.Tensor] = {}
+        self._rays = torch.arange(R, dtype=i32, device=dev)
         # the Renderer's world arrays last seen, and those the captures read
         self._wa_in = self._wa_cap = None
         # one line a capture: variant, warm, capture and instantiate ms,
@@ -153,16 +180,43 @@ class MarchGraph:
         rm.reset_raster_state(self.state.rs, self.static)
         self.state.rewound.zero_()
 
-    def body(self, a: rm.MarchArgs) -> None:
-        body = rm.gated_body if a.group_cells else rm.march_body
-        rm.write_state(self.state, body(a, self.state))
+    def index(self, width: int):
+        """The live-ray index buffer of a stage ``width`` rays wide (int32
+        (width,)), or None for the full width."""
+        if width == self._rays.shape[0]:
+            return None
+        buf = self._index.get(width)
+        if buf is None:  # distinct rays until the first pack
+            buf = self._index[width] = torch.arange(
+                width + 1, dtype=torch.int32, device=self.device)
+        return buf[:width]
 
-    def control(self, a: rm.MarchArgs, first: bool):
+    def body(self, a: rm.MarchArgs, index=None) -> None:
+        body = rm.gated_body if a.group_cells else rm.march_body
+        rm.write_state(self.state, body(a, self.state, index))
+
+    def pack(self, width: int) -> None:
+        """The next stage's index (``index(width)``) from the liveness: a
+        live ray goes to its rank among the live rays, a dead one after all
+        of them to its rank among the dead, and a rank at or past ``width``
+        to the discarded slot; ``raymarch.stage_index`` is its plain
+        version."""
+        self.index(width)
+        alive = self.state.alive
+        live = torch.cumsum(alive, 0, dtype=torch.int32)  # live rays <= r
+        dest = torch.where(alive, live - 1, live[-1:] + self._rays - live)
+        self._index[width].scatter_(0, dest.clamp_(max=width).long(),
+                                    self._rays)
+
+    def control(self, a: rm.MarchArgs, first: bool, threshold: int = 0,
+                check: bool = False, exit_out=None):
         from cpuvox_tpu_torch.ops import march_loop
 
         s = self.state
         return march_loop.loop_control(s.alive, s.rs.alive, s.i,
-                                       a.max_chunks, first=first)
+                                       a.max_chunks, first=first,
+                                       threshold=threshold, check=check,
+                                       exit_out=exit_out)
 
     def world(self, wa: rm.WorldArrays) -> rm.WorldArrays:
         """The world arrays the captures read for the Renderer's ``wa``:
@@ -186,14 +240,19 @@ class MarchGraph:
 
     def variant(self, wa: rm.WorldArrays, lod_distances, far_clip, dims,
                 iteration_direction: int, chunk: int, max_chunks: int,
-                group_cells: int) -> _Variant:
-        """The variant for these settings, captured now if it was not (or
-        if a setting it baked in changed), on the world arrays ``world``
-        gives for ``wa``."""
+                group_cells: int, widths=None) -> _Variant:
+        """The variant for these settings and stage ``widths`` (None: the
+        full width alone, the uncompacted march), captured now if it was
+        not (or if a setting it baked in changed), on the world arrays
+        ``world`` gives for ``wa``."""
+        R = self._rays.shape[0]
+        widths = (R,) if widths is None else tuple(int(w) for w in widths)
+        if widths[0] != R or any(b >= a for a, b in zip(widths, widths[1:])):
+            raise ValueError(f"stage widths {widths} for {R} rays")
         wa = self.world(wa)
         lod = tuple(float(x) for x in np.asarray(lod_distances, np.float32))
         far = float(np.float32(far_clip))  # compares like the f32 scalar
-        slot = (int(iteration_direction), int(group_cells))
+        slot = (int(iteration_direction), int(group_cells), widths)
         key = (lod, far, tuple(dims), int(chunk), int(max_chunks))
         v = self.variants.get(slot)
         if v is not None and v.key == key and v.args.wa is wa:
@@ -203,46 +262,65 @@ class MarchGraph:
             torch.tensor(lod, dtype=torch.float32, device=self.device), far,
             tuple(dims), self.consts, slot[0], int(chunk), int(max_chunks),
             slot[1], True)
+        exits = torch.zeros(len(widths), dtype=torch.int32,
+                            device=self.device)
         v = self.variants[slot] = _Variant(
-            key, a, self._capture(a, slot) if self.device.type == "cuda"
-            else None)
+            key, a, widths, exits,
+            self._capture(a, slot, widths, exits)
+            if self.device.type == "cuda" else None)
         return v
 
-    def _capture(self, a: rm.MarchArgs, slot):
+    def _capture(self, a: rm.MarchArgs, slot, widths, exits):
         from cpuvox_tpu_torch.ops import march_loop
 
         dev = self.device
         t0 = time.perf_counter()
-        # one eager iteration on dead rays: the kernels load and torch's ops
-        # make their first-use calls before the capture; the frame's load
-        # overwrites what it wrote
+        # one eager iteration a stage on dead rays, and the packs: the
+        # kernels load and torch's ops make their first-use calls before the
+        # capture; the frame's load overwrites what they wrote
         self.state.alive.zero_()
-        self.body(a)
+        for w in widths:
+            self.body(a, self.index(w))
+        for w in widths[1:]:
+            self.pack(w)
         reserved = torch.cuda.memory_reserved(dev)
         t1 = time.perf_counter()
-        graphs = []
+
+        def captured(fn):
+            g = torch.cuda.CUDAGraph(keep_graph=True)
+            g.capture_begin(pool=self.pool)
+            try:
+                fn()
+            finally:
+                g.capture_end()
+            return g
+
+        stages = []
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
-            for fn in (self.prologue, lambda: self.body(a)):
-                g = torch.cuda.CUDAGraph(keep_graph=True)
-                g.capture_begin(pool=self.pool)
-                try:
-                    fn()
-                finally:
-                    g.capture_end()
-                graphs.append(g)
+            prologue = captured(self.prologue)
+            bodies, packs = [], []
+            for k, w in enumerate(widths):
+                s0, r0 = time.perf_counter(), torch.cuda.memory_reserved(dev)
+                bodies.append(captured(lambda: self.body(a, self.index(w))))
+                if k + 1 < len(widths):
+                    packs.append(captured(lambda: self.pack(widths[k + 1])))
+                stages.append({
+                    "width": w, "capture_ms": (time.perf_counter() - s0) * 1e3,
+                    "pool_bytes": torch.cuda.memory_reserved(dev) - r0})
         torch.cuda.current_stream(dev).wait_stream(stream)
         t2 = time.perf_counter()
         exec_ = march_loop.MarchGraphExec(
-            graphs[0], graphs[1], self.state.alive, self.state.rs.alive,
-            self.state.i, a.max_chunks)
+            prologue, bodies, packs, thresholds(widths), self.state.alive,
+            self.state.rs.alive, self.state.i, a.max_chunks, exits)
         t3 = time.perf_counter()
         self.captures.append({
-            "direction": slot[0], "gated": slot[1] > 0,
+            "direction": slot[0], "gated": slot[1] > 0, "widths": widths,
             "warm_ms": (t1 - t0) * 1e3, "capture_ms": (t2 - t1) * 1e3,
             "instantiate_ms": (t3 - t2) * 1e3,
-            "pool_bytes": torch.cuda.memory_reserved(dev) - reserved})
+            "pool_bytes": torch.cuda.memory_reserved(dev) - reserved,
+            "stages": stages})
         return exec_
 
     def march(self, v: _Variant, static: rm.RayStatic, dda: rm.DDAState,
@@ -257,13 +335,21 @@ class MarchGraph:
         s = self.state
         if v.exec is not None:
             v.exec.launch(torch.cuda.current_stream(self.device))
-            march_loop.graph_stats.add(launches=1, iterations=s.i)
-        else:  # the plain version: the host reads the condition
+            march_loop.graph_stats.add(launches=1, checks=len(v.widths),
+                                       iterations=s.i)
+        else:  # the plain version: the host reads each condition
             self.prologue()
-            cond = self.control(a, first=True)
-            while bool(cond):
-                self.body(a)
-                cond = self.control(a, first=False)
+            for k, (w, t) in enumerate(zip(v.widths, thresholds(v.widths))):
+                index = self.index(w)
+                cond = self.control(a, first=k == 0, threshold=t,
+                                    check=k > 0, exit_out=v.exits[k])
+                while bool(cond):
+                    self.body(a, index)
+                    cond = self.control(a, first=False, threshold=t,
+                                        exit_out=v.exits[k])
+                if k + 1 < len(v.widths):
+                    self.pack(v.widths[k + 1])
+        march_loop.stage_stats.add(v.widths, v.exits)
         if a.group_cells:
             rm.gated_stats.add(iterations=s.i, rewinds=s.rewound)
         return rm.fill_skybox(a.wa, self.static, s.rs.raybuf)

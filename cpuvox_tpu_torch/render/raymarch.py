@@ -12,11 +12,11 @@ ExecuteRay, re-expressed data-parallel over all rays):
   the fetch is inside the rasterize kernel: ``march_ops``).  An iteration
   is a function of the loop's state (``MarchState``; ``march_step``,
   ``gated_step``) that reads nothing on the host; the loop's condition,
-  ``any(alive) & (i < max_chunks)``, is ``loop_control``.  The host drives
-  the loop (``march_on_host``, one read of the live count an iteration) on
-  the CPU, with compaction and on the ray-sharded and world-sharded paths;
-  a CUDA Renderer's default frame and a camera batch's direction group run
-  it as one CUDA graph launch (``render/march_graph.py``);
+  ``count(alive) > threshold & (i < max_chunks)``, is ``loop_control``.
+  A CUDA Renderer with the kernels runs the loop as one CUDA graph launch
+  (``render/march_graph.py``), compacted or not; the host drives it
+  (``march_on_host``, one read of the live count an iteration) on the CPU,
+  with the plain versions and on the ray-sharded path;
 - ``return``/``break`` early-outs become per-ray ``alive`` masks;
 - the raybuffer holds int32 color indices into ``WorldArrays.colors``
   (skybox = 0, unwritten = -1), resolved to ARGB once per frame; in ARGB
@@ -39,16 +39,18 @@ fetches and rasterizes every visited cell; the occupancy-gated one
 (``march_gated``, ``raymarch.py:1228-1580``) first reads one occupancy-tile
 row per tile a ray crosses and rasterizes only the cells that may draw.
 
-Both can compact the live rays on the host loop (``compact``; the
-reference's staged compaction, ``raymarch.py:1085-1090`` and
-``:1593-1605``), in this card's form: the
-raybuffer and all per-ray state stay in place at full width R, and the roll,
-the gate and the rasterizer work on a live-ray index (ascending
-int32 (Rk,)), rebuilt whenever the live count has fallen to half of Rk or
-less.  The count is read where the march already asked the device whether
-any ray lives, so compaction adds no host sync.  It does add launches (the
-takes and puts of the state the gated glue reads), which is why the Renderer
-leaves it off unless it is created with ``compact=True``.
+Both compact the live rays in this card's form of the reference's staged
+compaction (``raymarch.py:1010-1024``, ``:1085-1092``, ``:1593-1605``):
+the raybuffer and all per-ray state stay in place at full width R, and the
+roll, the gate and the rasterizer work on a live-ray index (int32 (Rk,)),
+so no state is sorted and nothing is banked; only the index is rebuilt.
+In a march graph the widths halve on a fixed schedule (``stage_widths``):
+a stage loops while more rays live than the next width holds, then
+``stage_index`` packs the live rays into the next width's index (JAX's
+stable sort, word for word).  The host loop (``live_rays``) rebuilds an
+ascending index of exactly the live rays whenever the count has fallen to
+half of Rk or less.  Either way a ray that is dead in the index changes
+nothing, and the raybuffer is the uncompacted march's.
 """
 from __future__ import annotations
 
@@ -120,9 +122,11 @@ class WorldArrays(NamedTuple):
     runs: torch.Tensor | None = None
     runs_rev: torch.Tensor | None = None
     # a world-sharded active world's tile window (``parallel/world_shard.py``)
-    # as four host ints (tx0, tz0, log2 of the tile side, W), else None: LOD0
-    # columns and occupancy rows remap through it (``_cell_index``)
-    win: tuple[int, int, int, int] | None = None
+    # as a (4,) int32 tensor [tx0, tz0, log2 of the tile side, W] (JAX's
+    # ``win``), else None: LOD0 columns and occupancy rows remap through it
+    # (``_cell_index``).  A tensor, so a window move of the same W is a copy
+    # into a march graph's world buffers, not a new capture
+    win: torch.Tensor | None = None
 
 
 class CellFields(NamedTuple):
@@ -198,9 +202,10 @@ def world_arrays(dw, device) -> WorldArrays:
 
 
 def _window_slot(win, xc, zc):
-    """(slot, tile mask) of LOD0 cells in the window ``(tx0, tz0, tl, W)``:
-    the window-relative tile, row-major, and ``W * W`` (the all-empty
-    sentinel tile) for a cell off the window."""
+    """(slot, tile mask) of LOD0 cells in the window ``(tx0, tz0, tl, W)``
+    (four ints, or a (4,) int32 tensor): the window-relative tile,
+    row-major, and ``W * W`` (the all-empty sentinel tile) for a cell off
+    the window."""
     tx0, tz0, tl, w = win
     txr = (xc >> tl) - tx0
     tzr = (zc >> tl) - tz0
@@ -946,6 +951,38 @@ def live_index(mask, n: int):
                        device=mask.device).scatter_(0, dest, rays)[:n]
 
 
+# the card's stage quantum: every stage width of a march graph is a multiple
+# of it.  256 rays are 8 blocks of the roll (32 rays a block) and 32 of the
+# rasterizer (8 rays a block), so no stage launches a ragged block; and a
+# stage's body costs its own captured temporaries in the graph's pool, so
+# the narrowest stage stops at 256 rays rather than a few dozen, where the
+# launches and the per-stage check and pack would cost more than the
+# narrower kernels save
+STAGE_QUANTUM = 256
+
+
+def stage_widths(R: int, quantum: int = STAGE_QUANTUM) -> tuple:
+    """The staged march's widths (``raymarch.py:1085-1091``): R, then each
+    width halved and rounded up to a multiple of ``quantum``, while that is
+    at least ``quantum`` and narrower than the last.  With quantum 1024 it
+    is the reference's ``sizes``."""
+    sizes = [int(R)]
+    while True:
+        nxt = ((sizes[-1] // 2 + quantum - 1) // quantum) * quantum
+        if nxt < quantum or nxt >= sizes[-1]:
+            return tuple(sizes)
+        sizes.append(nxt)
+
+
+def stage_index(alive, width: int):
+    """The next stage's live-ray index (``raymarch.py:1601``): the rays
+    stable-sorted live first, cut to ``width``, as int32 (width,).  The
+    live rays come first in ascending order, then dead rays in ascending
+    order, so every slot is a distinct ray.  The plain version of
+    ``render/march_graph.py``'s pack."""
+    return torch.argsort(~alive, stable=True)[:width].to(torch.int32)
+
+
 def live_rays(march_alive, index, compact: bool):
     """The march's one read from the device a chunk: (live count, index).
     The live-ray index is rebuilt when the count has fallen to half of the
@@ -1021,13 +1058,15 @@ def _advance(alive, rs_alive, i):
     return alive & rs_alive, i + 1
 
 
-def loop_control(alive, rs_alive, i, max_chunks: int):
-    """The loop's control after a body (``raymarch.py:928-930``): the
-    liveness folded, the counter advanced, and the next iteration's
-    condition ``any(alive) & (i < max_chunks)`` as a 0-d bool tensor.  The
+def loop_control(alive, rs_alive, i, max_chunks: int, threshold: int = 0):
+    """The loop's control after a body (``raymarch.py:928-930``, and
+    ``:1126-1129`` for a stage of the staged march): the liveness folded,
+    the counter advanced, and the next iteration's condition
+    ``count(alive) > threshold & (i < max_chunks)`` as a 0-d bool tensor;
+    threshold 0 is ``any(alive)``, a stage's is the next stage's width.  The
     plain version of ``csrc/march_loop.cu``'s kernel."""
     alive, i = _advance(alive, rs_alive, i)
-    return alive, i, alive.any() & (i < max_chunks)
+    return alive, i, (alive.sum() > threshold) & (i < max_chunks)
 
 
 def march_body(a: MarchArgs, s: MarchState, index=None) -> MarchState:
@@ -1079,8 +1118,8 @@ def gated_step(a: MarchArgs, s: MarchState, index=None) -> MarchState:
 
 
 def march_on_host(a: MarchArgs, s: MarchState, compact: bool):
-    """The loop driven from the host, for the CPU, compaction and the
-    ray- and world-sharded paths: one read of the live count an iteration
+    """The loop driven from the host, for the CPU, the plain versions and
+    the ray-sharded path: one read of the live count an iteration
     (``live_rays``), which also rebuilds the live-ray index.  Returns (the
     final state, iterations run)."""
     step = gated_step if a.group_cells else march_step

@@ -345,7 +345,7 @@ def animate_heights(spec: SurfaceWorldSpec, base_top, t: float):
 
 
 def surface_renderer(spec: SurfaceWorldSpec, top, colors, config=None,
-                     device=None, compact: bool = False):
+                     device=None, compact: bool | None = None):
     """A Renderer over a dynamic surface world (``dynamic.py:315``).  Swap
     ``renderer._wa = build_surface_world_arrays(spec, top, colors)`` after
     an edit; the shapes stay the same."""
@@ -556,7 +556,7 @@ def editable_world_arrays(spec: EditableWorldSpec,
 
 
 def editable_renderer(spec: EditableWorldSpec, ew: EditableWorld,
-                      config=None, compact: bool = False):
+                      config=None, compact: bool | None = None):
     """A Renderer over an EditableWorld (``dynamic.py:552``), LOD0 only:
     every LOD distance is 4x the far clip.  Swap ``renderer._wa =
     editable_world_arrays(spec, new_ew)`` after edits."""
@@ -732,7 +732,7 @@ def editable_chain_snapshot(spec: EditableWorldSpec, ew: EditableWorld,
 
 def editable_chain_renderer(spec: EditableWorldSpec, ew: EditableWorld,
                             config=None, lod_levels: int | None = None,
-                            compact: bool = False):
+                            compact: bool | None = None):
     """A Renderer over an EditableWorld's exact-chain snapshot
     (``dynamic.py:772``), with the camera's own LOD distances.  Re-call
     after edits to refresh the far field."""

@@ -287,12 +287,16 @@ def split_cams(n_down, n_up, seed):
 def test_pitch_splits_at_one_bucket_keep_the_graphs(graph_route):
     """Two steps of 7 cameras, split 3 down / 4 up then 4 / 3: both groups
     of both steps pad to 4, so the second step finds one batch graph with
-    both directions' variants and makes nothing new."""
+    both directions' variants (a variant's slot: direction, gated group,
+    stage widths, the Renderer's schedule at the bucket's ray count) and
+    makes nothing new."""
     r = Renderer.create(lods(), RenderConfig(**BASE), device="cpu")
     render_camera_batch(r, split_cams(3, 4, 1))
     before = graphs_of(r)
-    assert list(before) == [(4 * r.ray_capacity, 64, torch.device("cpu"))]
-    assert sorted(next(iter(before.values()))[1]) == [(-1, 0), (1, 0)]
+    R = 4 * r.ray_capacity
+    w = r.stage_widths(R)
+    assert list(before) == [(R, 64, torch.device("cpu"))]
+    assert sorted(next(iter(before.values()))[1]) == [(-1, 0, w), (1, 0, w)]
     render_camera_batch(r, split_cams(4, 3, 2))
     assert graphs_of(r) == before
 
@@ -332,8 +336,8 @@ def test_camera_sharded_graph_batch_matches_unsharded(graph_route):
 @pytest.mark.cuda
 @pytest.mark.parametrize("argb,gate,compact", MODES)
 def test_batch_kernels_match_plain_on_cuda(cuda, argb, gate, compact):
-    """Through the kernels (compaction off: the batch march graphs, one
-    launch a direction; on: the host loop) == the plain versions == single
+    """Through the kernels (the batch march graphs, one launch a
+    direction, staged with compaction on) == the plain versions == single
     frames; the kernels' launches counted by their wrappers and, inside the
     graphs, by the device counter."""
     from cpuvox_tpu_torch.ops import march_loop
@@ -347,8 +351,10 @@ def test_batch_kernels_match_plain_on_cuda(cuda, argb, gate, compact):
     counts = march_loop.kernel_launches()
     assert counts["roll_chunk"] > 0 and counts["rasterize_visits"] > 0
     assert counts["reproject_screens"] == 2  # one phase-2 launch a direction
-    assert march_loop.graph_stats["launches"] == (0 if compact else 2)
-    assert bool(r._batch_graphs) != compact
+    assert march_loop.graph_stats["launches"] == 2
+    assert r._batch_graphs and all(
+        (len(v.widths) > 1) == compact
+        for g in r._batch_graphs.values() for v in g.variants.values())
     np.testing.assert_array_equal(got, want)
     for i, cam in enumerate(CAMS):
         np.testing.assert_array_equal(got[i], r.render(cam))

@@ -191,9 +191,10 @@ def test_live_index_is_ascending_and_rebuilt_on_halving():
 
 @pytest.mark.parametrize("gate", ["off", "on"])
 def test_renderer_compacts_only_when_asked(gate):
-    """The Renderer marches at full width unless it was created with
-    ``compact=True`` or a march is asked to; the screen and the raybuffer
-    are the same either way, dense and gated."""
+    """On the host loop (the CPU) the Renderer marches at full width unless
+    it was created with ``compact=True`` or a march is asked to (its
+    default, ``compact=None``, compacts only in a march graph); the screen
+    and the raybuffer are the same either way, dense and gated."""
     from cpuvox_tpu_torch.config import RenderConfig
     from cpuvox_tpu_torch.render.frame import Renderer
 
@@ -201,7 +202,8 @@ def test_renderer_compacts_only_when_asked(gate):
     cam = cm.Camera(position=(-6, 70, 10), pitch_deg=30.0, yaw_deg=45.0)
     lods = lods_for("layered")
     plain = Renderer.create(lods, cfg, device="cpu")
-    assert plain.compact is False
+    assert plain.compact is None and not plain.compacts(graph=False)
+    assert plain.compacts(graph=True)
     n0 = trm.compact_stats["rebuilds"]
     screen, raybuf, _ = plain.render_device(cam)
     assert trm.compact_stats["rebuilds"] == n0
@@ -340,8 +342,10 @@ def test_raster_kernel_with_index_matches_plain_on_cuda(cuda, scene, pos,
 @pytest.mark.cuda
 @pytest.mark.parametrize("gate", ["off", "on"])
 def test_compacted_frame_on_cuda_matches_uncompacted(cuda, gate):
-    """A frame through the kernels with and without compaction: the same
-    raybuffer, and the index was rebuilt on the way."""
+    """A frame through the kernels with and without compaction (the staged
+    march graph and the full-width one): the same raybuffer, and the staged
+    graph ran iterations below the full width."""
+    from cpuvox_tpu_torch.ops import march_loop
     from cpuvox_tpu_torch.bench import path as bench_path
     from cpuvox_tpu_torch.config import RenderConfig
     from cpuvox_tpu_torch.models.procedural import layered_world
@@ -354,8 +358,10 @@ def test_compacted_frame_on_cuda_matches_uncompacted(cuda, gate):
     for t in (0.35, 0.6):
         cam = bench_path.benchmark_camera(t * bench_path.BENCH_CLIP_LENGTH,
                                           r.device_world.dims, r.render_wh)
-        n0 = trm.compact_stats["rebuilds"]
+        march_loop.stage_stats.reset()
         a = r.march(r.frame_setup(cam), compact=True)
-        assert trm.compact_stats["rebuilds"] > n0
+        R = a.shape[0]
+        assert sum(n for w, n in march_loop.stage_stats.read().items()
+                   if w < R) > 0
         b = r.march(r.frame_setup(cam), compact=False)
         assert torch.equal(a, b)
