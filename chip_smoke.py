@@ -7,7 +7,8 @@ Run from the repository root, on a machine with an NVIDIA H100 (sm_90a) and
 
 (``python3 chip_smoke.py --shard-only`` builds the kernels and the two 2048
 worlds and runs phase 12 alone: the multi-device renderer over the shards
-of card 0 and, with more than one card, over the cards.)
+of card 0 and, with more than one card, over the cards; it ends with the
+phase's summary line and its time.)
 
 Phases; each prints its own lines, and any mismatch or exception exits
 non-zero (no phase catches its own failure):
@@ -127,20 +128,30 @@ non-zero (no phase catches its own failure):
    Renderer's, the window, the exchanges and their bytes; the window over
    12 path cameras, the inner Renderer on the graph route uncompacted and
    staged: its captures and ``memory_reserved`` do not grow with the
-   window's moves; (f) on each, the
-   rasterizer on a chunk of the active window against its plain version;
-   (c) ``render_frame_sharded`` on both worlds == the unsharded frame,
-   launches a frame, frame ms sharded and unsharded in turns; (d) the
-   composed mode, one frame on each; (e) the rollout's 64 cameras at
-   256x256 camera-sharded, each block through its device's batch march
-   graph, == the unsharded batch, cams/s both ways in turns (its held run
-   on the host loop).  In one more run of (a), (b), (c), (d) and (e) each, the four
-   kernels are held against their plain versions on the same inputs, at
-   the shapes the sharded path gives them (a shard's slice of the rays,
-   the gathered raybuffer, a camera block): every phase-2 call, and each
-   shard's first roll and rasterizer call at full width and on a live-ray
-   index.  With more than one card,
-   (a), (c) and (e) again over the real cards;
+   window's moves; (f) on each, the rasterizer on a chunk of the active
+   window against its plain version.  Then the shards' device program
+   (each shard or camera block in a staged march graph of its own, on a
+   stream of its own): (c) ``render_frame_sharded`` on both worlds, (d)
+   the composed mode (the strict-subset window, the rays over the same 4
+   shards) over the 12-camera window path on both, (e) the rollout's 64
+   cameras at 256x256 camera-sharded.  For each of (c), (d) and (e): ==
+   the unsharded Renderer or batch == the sharded host loop
+   (``host_loop``), 0 magenta; the graph launches and the iterations by
+   stage (the graphs' launches counted on the device); one more run on
+   the host loop with the kernel calls held against their plain
+   versions (a shard's slice of the rays, the gathered raybuffer, a camera
+   block: every phase-2 call, and each shard's first roll and rasterizer
+   call at full width and on a live-ray index); a warm run silent under
+   ``set_sync_debug_mode("error")`` up to the screen's copy; no capture
+   and ``memory_reserved`` flat over warm runs (for (d), over a second
+   pass of the window path, its moves included); the shards' overlap (CUDA
+   events around each shard's work on its stream: their summed span over
+   their union, each card's from a reference event recorded on it after a
+   sync of every card); the shard graphs' capture ms and pool bytes; frame
+   ms or cams/s in turns: sharded graphs, unsharded, for (e) the blocks
+   queued on one stream (``one_stream``), sharded host loop.  With
+   more than one card, (a), (c), (d) (with the copy of the active world
+   to the other cards a window move) and (e) again over the real cards;
 13. the benchmark entry, ``python -m cpuvox_tpu_torch.bench``, a process
    a mode (``BENCH_RUNS``): terrain2048 at 1920x1080 over 8 frames and
    layered2048 at 320x180, each through its verify gate (one path camera
@@ -2574,72 +2585,331 @@ def check_window_path(tag: str, sr, plain) -> None:
         f"the captures do not grow with the moves ({card_line()})")
 
 
+def sync_all() -> None:
+    """Wait for every card a sharded run may have used."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def reserved_all() -> list:
+    return [torch.cuda.memory_reserved(i)
+            for i in range(torch.cuda.device_count())]
+
+
 def time_turns(fns: dict, reps_each: int) -> dict:
-    """Each function's host times in ms, synced, in turns a, b, b, a."""
+    """Each function's host times in ms, synced, in turns a, b, c, c, b,
+    a."""
     names = list(fns)
     order = names + names[::-1]
     ms = {n: [] for n in names}
-    def sync():  # every card a sharded run may have used
-        for i in range(torch.cuda.device_count()):
-            torch.cuda.synchronize(i)
-
     for _ in range(reps_each):
         for n in order:
-            sync()
+            sync_all()
             t0 = time.perf_counter()
             fns[n]()
-            sync()
+            sync_all()
             ms[n].append((time.perf_counter() - t0) * 1e3)
     return ms
 
 
+def on_host(renderer, fn):
+    """``fn()`` with ``renderer`` on the host loop (``host_loop``)."""
+    with host_loop(renderer):
+        return fn()
+
+
+def shard_graphs(renderer, role: str, rmesh=None) -> list:
+    """The Renderer's march graphs of one ``role`` of shard ("ray",
+    "cam"), with ``rmesh`` only those of its slots and devices."""
+    return [g for k, g in renderer._shard_graphs.items() if k[0] == role
+            and (rmesh is None or (k[1] < rmesh.n_ray_shards
+                                   and k[4] == rmesh.devices[k[1]]))]
+
+
+def n_captures(graphs) -> int:
+    return sum(len(g.captures) for g in graphs)
+
+
+def capture_txt(graphs) -> str:
+    """Each shard graph's captures: direction, capture / instantiation ms
+    and the private pool's growth in bytes."""
+    return "; ".join(
+        f"{g.shape[0]} rays: " + ", ".join(
+            f"{c['direction']:+d} {c['capture_ms']:.1f} / "
+            f"{c['instantiate_ms']:.1f} ms, {c['pool_bytes']} B"
+            for c in g.captures) for g in graphs)
+
+
+def silent(fn):
+    """``fn()`` after a sync, under ``set_sync_debug_mode("error")``: any
+    read from the card raises."""
+    sync_all()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def overlap(run, devices) -> dict:
+    """``run(spans)`` once, its shards' work on their streams between
+    timing events: the shards' summed span over their union span (above 1,
+    they overlapped).  The events of two cards share no clock, so each
+    card's times count from a reference event recorded on it right after a
+    sync of every card, the references one after another at one host
+    moment (apart by the host's time between two records, microseconds)."""
+    sync_all()
+    refs = {}
+    for d in dict.fromkeys(devices):  # before every shard's start
+        refs[d.index] = torch.cuda.Event(enable_timing=True)
+        refs[d.index].record(torch.cuda.current_stream(d))
+    spans: list = []
+    run(spans)
+    sync_all()
+    cards = len(refs)
+
+    def since_ref(e) -> float:
+        ref = refs[e.device.index] if cards > 1 else next(iter(refs.values()))
+        return ref.elapsed_time(e)
+
+    rel = [(since_ref(a), since_ref(b)) for a, b in spans]
+    summed = sum(b - a for a, b in rel)
+    union = max(b for _a, b in rel) - min(a for a, _b in rel)
+    return {"ratio": summed / union, "txt": (
+        f"{summed / union:.3f} (the {len(rel)} shards' spans sum to "
+        f"{summed:.3f} ms over a union of {union:.3f} ms; each from the "
+        f"frame's start{'' if cards == 1 else f', on {cards} cards, each from its reference'}: "
+        + ", ".join(f"{a:.3f}-{b:.3f}" for a, b in rel) + ")")}
+
+
+@contextlib.contextmanager
+def one_stream(rmesh):
+    """Within the block the camera-sharded batch queues its blocks in turn
+    on the current stream, each through the batch graph of its bucket and
+    device (``Renderer.march_batch_graph``): the route before each block
+    had a graph and a stream of its own, which ``render_camera_batch``
+    takes where the mesh reports itself off the graphs."""
+    rmesh.on_graphs = lambda renderer: False
+    try:
+        yield rmesh
+    finally:
+        del rmesh.on_graphs
+
+
+def magenta(screens) -> int:
+    from cpuvox_tpu_torch.render.raymarch import MAGENTA_I32
+
+    return sum(int((torch.as_tensor(np.ascontiguousarray(x).view(np.int32))
+                    if isinstance(x, np.ndarray) else x.cpu()).eq(
+        MAGENTA_I32).sum()) for x in screens)
+
+
+def turns_txt(ms: dict) -> str:
+    return "; ".join(f"{k} {float(np.median(v)):.3f} (all "
+                     f"{np.round(v, 3).tolist()})" for k, v in ms.items())
+
+
+def warm_checks(tag: str, run, graphs, first, want, stats: dict,
+                frames) -> str:
+    """A sharded program's warm checks: ``run(first)`` (the device program
+    on a camera or a batch, its screens on the first device) under
+    ``set_sync_debug_mode("error")`` == ``want``; then over ``frames``
+    (more warm runs), no capture in ``graphs()`` and ``memory_reserved``
+    flat.  Returns the line's text."""
+    got = silent(lambda: run(first))
+    compare_screens(f"[shard] {tag} silent", [got], [want], stats)
+    sync_all()
+    caps, reserved = n_captures(graphs()), reserved_all()
+    for f in frames:
+        run(f)
+    sync_all()
+    if (n_captures(graphs()), reserved_all()) != (caps, reserved):
+        raise AssertionError(
+            f"[shard] {tag}: warm runs captured ({caps} -> "
+            f"{n_captures(graphs())}) or grew memory_reserved ({reserved} "
+            f"-> {reserved_all()})")
+    return (f"a warm run silent under set_sync_debug_mode('error') up to "
+            f"the screen's copy, == the unsharded one; {len(frames)} more "
+            f"warm runs: no capture, memory_reserved {reserved} unchanged")
+
+
 def check_ray_sharded(tag: str, plain, rmesh, where: str, tally: dict,
-                      stats: dict) -> None:
-    """(c) ``render_frame_sharded`` over ``rmesh`` on three path cameras ==
-    the unsharded frame; launches a frame of each kernel; one more frame
-    with its kernel calls (each shard's roll and rasterizer, phase 2 on the
-    gathered raybuffer) held against their plain versions; frame ms sharded
-    and unsharded, in turns."""
-    from cpuvox_tpu_torch.parallel.mesh import render_frame_sharded
+                      stats: dict) -> dict:
+    """(c) ``render_frame_sharded`` over ``rmesh`` on three path cameras,
+    each shard in its own staged march graph on its own stream: == the
+    unsharded frame == the sharded host loop, 0 magenta; launches a frame,
+    the shards' graph launches and iterations by stage; one more frame on
+    the host loop with its kernel calls held against their plain versions;
+    a warm frame with no host read, no capture and ``memory_reserved`` flat
+    over warm frames; the shards' overlap by events; the shard graphs'
+    captures; frame ms in turns: sharded graphs, unsharded, sharded host
+    loop."""
+    from cpuvox_tpu_torch.ops import march_loop
+    from cpuvox_tpu_torch.parallel.mesh import (render_frame_sharded,
+                                                render_frame_sharded_device,
+                                                sharded_frame_rays)
 
     cams = [path_camera(plain, t) for t in SHARD_PATH_T]
     own: dict = {}
     got = shard_counts_run(own, lambda: [
         render_frame_sharded(plain, c, rmesh) for c in cams])
+    graph_launches = march_loop.graph_stats["launches"]
+    by_width = march_loop.stage_stats.read()
     for k, v in own.items():
         tally[k] = tally.get(k, 0) + v
-    compare_screens(f"[shard] {tag} ray-sharded", got,
-                    [plain.render(c) for c in cams], stats)
-    held_run(f"(c) {tag} ray-sharded over {where}",
-             lambda: render_frame_sharded(plain, cams[1], rmesh), stats)
-    per_frame = {k: v / len(cams) for k, v in own.items()}
-    ms = {"unsharded": [], "sharded": []}
+    graphs = [g for g in shard_graphs(plain, "ray", rmesh)
+              if g.shape[0] == sharded_frame_rays(plain, rmesh) //
+              rmesh.n_ray_shards]
+    n = rmesh.n_ray_shards
+    if graph_launches != n * len(cams) or len(graphs) != n:
+        raise AssertionError(f"[shard] {tag} ray-sharded: {graph_launches} "
+                             f"graph launches and {len(graphs)} shard graphs "
+                             f"for {len(cams)} frames over {n} shards")
+    want = [plain.render(c) for c in cams]
+    host = [on_host(plain, lambda c=c: render_frame_sharded(plain, c, rmesh))
+            for c in cams]
+    compare_screens(f"[shard] {tag} ray-sharded", got, want, stats)
+    compare_screens(f"[shard] {tag} ray-sharded host loop", host, want,
+                    stats)
+    n_mag = magenta(got)
+    if n_mag:
+        raise AssertionError(f"[shard] {tag} ray-sharded: {n_mag} magenta")
+    with host_loop(plain):
+        held_run(f"(c) {tag} ray-sharded over {where}, host loop",
+                 lambda: render_frame_sharded(plain, cams[1], rmesh), stats)
+    warm = warm_checks(
+        f"{tag} ray-sharded",
+        lambda c: render_frame_sharded_device(plain, c, rmesh),
+        lambda: graphs, cams[1],
+        torch.from_numpy(want[1].view(np.int32)), stats, cams)
+    ov = overlap(lambda spans: render_frame_sharded_device(
+        plain, cams[1], rmesh, spans), rmesh.devices)
+    ms = {"sharded graphs": [], "unsharded": [], "sharded host loop": []}
     for c in cams:
-        m = time_turns({"unsharded": lambda: plain.render(c),
-                        "sharded": lambda: render_frame_sharded(
-                            plain, c, rmesh)}, 1)
+        m = time_turns({
+            "sharded graphs": lambda: render_frame_sharded(plain, c, rmesh),
+            "unsharded": lambda: plain.render(c),
+            "sharded host loop": lambda: on_host(
+                plain, lambda: render_frame_sharded(plain, c, rmesh))}, 1)
         for k in ms:
             ms[k] += m[k]
-    med = {k: float(np.median(v)) for k, v in ms.items()}
+    caps = n_captures(graphs)
+    per_frame = {k: v / len(cams) for k, v in own.items()}
     log(f"[shard] (c) {tag} {MAIN_WH[0]}x{MAIN_WH[1]}, one camera's rays "
-        f"over {where} ({rmesh.n_ray_shards} shards): {len(cams)} path "
-        f"cameras == the unsharded frame, 0 pixels differ; a frame "
-        f"launches roll {per_frame['roll_chunk']:.1f}, rasterize "
+        f"over {where} ({n} shards of {graphs[0].shape[0]} rays, stages "
+        f"{plain.stage_widths(graphs[0].shape[0])}, each its own graph on "
+        f"its own stream): {len(cams)} path cameras == the unsharded frame "
+        f"== the sharded host loop, 0 pixels differ, 0 magenta; a frame "
+        f"launches {graph_launches / len(cams):.1f} graphs, roll "
+        f"{per_frame['roll_chunk']:.1f}, rasterize "
         f"{per_frame['rasterize_visits']:.1f}, phase 2 "
-        f"{per_frame['reproject_screen']:.1f}; frame ms in turns (median of "
-        f"{len(ms['sharded'])}): sharded {med['sharded']:.3f}, unsharded "
-        f"{med['unsharded']:.3f} (all sharded {np.round(ms['sharded'], 3).tolist()}, "
-        f"unsharded {np.round(ms['unsharded'], 3).tolist()}) ({card_line()})")
+        f"{per_frame['reproject_screen']:.1f}; iterations by stage width "
+        f"{by_width}; {warm}; overlap {ov['txt']}; the shard graphs' "
+        f"captures (direction capture / instantiate ms, pool bytes): "
+        f"{capture_txt(graphs)}; frame ms in turns (median of "
+        f"{len(ms['unsharded'])}): {turns_txt(ms)} ({card_line()})")
+    if n_captures(graphs) != caps:
+        raise AssertionError(f"[shard] {tag}: the timed frames captured")
+    return {"ms": {k: float(np.median(v)) for k, v in ms.items()},
+            "overlap": ov["ratio"]}
 
 
-def check_camera_sharded(rmesh, where: str, tally: dict, stats: dict) -> None:
+def check_composed(tag: str, sr, plain, rmesh, where: str, tally: dict,
+                   stats: dict) -> dict:
+    """(d) the composed mode: LOD0 striped in tiles with the strict-subset
+    window, one camera's rays over ``rmesh``, each shard in its own graph.
+    Over the window path (``SHARD_WINDOW_FRAMES`` path cameras): every
+    frame == the unsharded Renderer's, 0 magenta; a second pass moves the
+    window as often with no capture and ``memory_reserved`` flat; a warm
+    frame with no host read; one frame on the host loop held against the
+    plain versions; the overlap; frame ms in turns: composed graphs,
+    unsharded, composed host loop; over several cards, the replicas'
+    copy a window move."""
+    from cpuvox_tpu_torch.parallel.mesh import render_frame_sharded_device
+
+    sr.ray_mesh = rmesh
+    ref = with_lod0(plain, SHARD_LOD0_RADIUS)
+    sr.inner.lod_distances = ref.lod_distances.copy()
+    sr.inner.far_clip = ref.far_clip
+    r = sr.inner
+    path = [path_camera(plain, t)
+            for t in np.linspace(0.0, 1.0, SHARD_WINDOW_FRAMES)]
+    got = shard_counts_run(tally, lambda: [sr.render(c) for c in path])
+    compare_screens(f"[shard] {tag} composed", got,
+                    [ref.render(c) for c in path], stats)
+    n_mag = magenta(got)
+    if n_mag:
+        raise AssertionError(f"[shard] {tag} composed: {n_mag} magenta")
+    graphs = shard_graphs(r, "ray")
+    sync_all()
+    caps, reserved = n_captures(graphs), reserved_all()
+    corners = [sr._window_key]
+    for c in path:
+        sr.render(c)
+        corners.append(sr._window_key)
+    sync_all()
+    moves = sum(a != b for a, b in zip(corners, corners[1:]))
+    if moves == 0 or (n_captures(graphs), reserved_all()) != (caps,
+                                                              reserved):
+        raise AssertionError(
+            f"[shard] {tag} composed path: {moves} moves, captures {caps} "
+            f"-> {n_captures(graphs)}, memory_reserved {reserved} -> "
+            f"{reserved_all()}")
+    cam = path[len(path) // 2]
+    sr.render(cam)  # its window: a warm frame moves nothing
+    want = torch.from_numpy(ref.render(cam).view(np.int32))
+    got1 = silent(lambda: render_frame_sharded_device(r, cam, rmesh))
+    compare_screens(f"[shard] {tag} composed silent", [got1], [want], stats)
+    with host_loop(r):
+        held_run(f"(d) {tag} composed, host loop", lambda: sr.render(cam),
+                 stats)
+    ov = overlap(lambda spans: render_frame_sharded_device(
+        r, cam, rmesh, spans), rmesh.devices)
+    ms = time_turns({
+        "composed graphs": lambda: sr.render(cam),
+        "unsharded": lambda: ref.render(cam),
+        "composed host loop": lambda: on_host(r, lambda: sr.render(cam))}, 2)
+    replica = ""
+    others = [d for d in dict.fromkeys(rmesh.devices) if d != r.device]
+    if others:  # a window move copies the active world to each other card
+        nbytes = sum(x.numel() * x.element_size() for x in r._wa
+                     if isinstance(x, torch.Tensor))
+        copy_ms = []
+        for _ in range(3):
+            sync_all()
+            t0 = time.perf_counter()
+            for d in others:
+                [x.to(d) for x in r._wa if isinstance(x, torch.Tensor)]
+            sync_all()
+            copy_ms.append((time.perf_counter() - t0) * 1e3)
+        replica = (f"; a window move's replicas: {nbytes} B to each of "
+                   f"{len(others)} other cards, {np.round(copy_ms, 3).tolist()}"
+                   " ms (host clock, synced)")
+    log(f"[shard] (d) {tag} composed: LOD0 over the world shard's devices "
+        f"(window {sr._window_key}), the camera's rays over {where}: "
+        f"{len(path)} path cameras == the unsharded Renderer, 0 pixels "
+        f"differ, 0 magenta ({caps} shard-graph captures); a second pass: "
+        f"{moves} window moves, no capture, memory_reserved {reserved} "
+        f"unchanged; a warm frame silent under set_sync_debug_mode('error') "
+        f"up to the screen's copy; overlap {ov['txt']}; captures "
+        f"{capture_txt(graphs)}; frame ms in turns: {turns_txt(ms)}"
+        f"{replica} ({card_line()})")
+    return {"ms": {k: float(np.median(v)) for k, v in ms.items()},
+            "overlap": ov["ratio"]}
+
+
+def check_camera_sharded(rmesh, where: str, tally: dict, stats: dict) -> dict:
     """(e) the rollout's 64 cameras at 256x256 over ``rmesh``, each camera
-    block bucketed and marched through its device's batch march graph: the
-    batch == the unsharded batch; then once more on the host loop
-    (compaction on) with its kernel calls (each camera block's march and
-    phase 2) held against their plain versions; cams/s both ways in
-    turns."""
+    block bucketed and marched through a batch graph of its own on its own
+    stream: the batch == the unsharded batch == the sharded host loop, 0
+    magenta; once more on the host loop (compaction on) with its kernel
+    calls (each camera block's march and phase 2) held against their plain
+    versions; a warm step with no host read, no capture and
+    ``memory_reserved`` flat over warm steps; the blocks' overlap; cams/s
+    in turns: sharded graphs, unsharded, the blocks queued on one stream
+    (``one_stream``), sharded host loop."""
     from cpuvox_tpu_torch.bench import harness
+    from cpuvox_tpu_torch.ops import march_loop
     from cpuvox_tpu_torch.parallel.batch import render_camera_batch
 
     r = harness.rollout_renderer(ROLLOUT_WH)
@@ -2647,33 +2917,70 @@ def check_camera_sharded(rmesh, where: str, tally: dict, stats: dict) -> None:
     cams = harness.rollout_cameras(1, N_ROLLOUT_CAMS, ROLLOUT_WH, dims)
     got = shard_counts_run(tally, lambda: render_camera_batch(r, cams,
                                                               rmesh=rmesh))
-    blocks = sorted({(k[0] // r.ray_capacity, str(k[2]))
-                     for k in r._batch_graphs})
-    if not blocks:
-        raise AssertionError("[shard] (e) the camera blocks took no graph")
-    compare_screens("[shard] rollout camera-sharded", [got],
-                    [render_camera_batch(r, cams)], stats)
+    graph_launches = march_loop.graph_stats["launches"]
+    graphs = shard_graphs(r, "cam")
+    blocks = sorted((k[1], k[2] // r.ray_capacity, str(k[4]))
+                    for k in r._shard_graphs if k[0] == "cam")
+    if not blocks or graph_launches != 2 * rmesh.n_ray_shards:
+        raise AssertionError(f"[shard] (e) {graph_launches} graph launches, "
+                             f"blocks {blocks}")
+    want = render_camera_batch(r, cams)
+    compare_screens("[shard] rollout camera-sharded", [got], [want], stats)
+    compare_screens("[shard] rollout camera-sharded host loop", [on_host(
+        r, lambda: render_camera_batch(r, cams, rmesh=rmesh))], [want],
+        stats)
+    n_mag = magenta([got])
+    if n_mag:
+        raise AssertionError(f"[shard] (e) {n_mag} magenta")
     host = dataclasses.replace(r, compact=True)
     with host_loop(host):
         held_run(f"(e) rollout camera-sharded over {where} (host loop)",
                  lambda: render_camera_batch(host, cams, rmesh=rmesh), stats)
     steps = [harness.rollout_cameras(2 + s, N_ROLLOUT_CAMS, ROLLOUT_WH, dims)
              for s in range(SHARD_ROLLOUT_STEPS)]
+    warm = warm_checks("rollout camera-sharded",
+                       lambda st: render_camera_batch(r, st, rmesh=rmesh),
+                       lambda: shard_graphs(r, "cam"), steps[0],
+                       render_camera_batch(r, steps[0]), stats, steps)
+    ov = overlap(lambda spans: render_camera_batch(r, steps[1], rmesh=rmesh,
+                                                   spans=spans),
+                 rmesh.devices)
 
-    def run(mesh):
+    def run(mesh, loop=False):
         for st in steps:
-            render_camera_batch(r, st, rmesh=mesh)
+            if loop:
+                on_host(r, lambda: render_camera_batch(r, st, rmesh=mesh))
+            else:
+                render_camera_batch(r, st, rmesh=mesh)
 
-    ms = time_turns({"unsharded": lambda: run(None),
-                     "sharded": lambda: run(rmesh)}, 1)
+    def run_one_stream():
+        with one_stream(rmesh):
+            run(rmesh)
+
+    with one_stream(rmesh):  # its batch graphs captured before the turns
+        compare_screens("[shard] rollout camera-sharded one stream", [
+            render_camera_batch(r, st, rmesh=rmesh) for st in steps],
+            [render_camera_batch(r, st) for st in steps], stats)
+    caps = n_captures(graphs)
+    ms = time_turns({"sharded graphs": lambda: run(rmesh),
+                     "unsharded": lambda: run(None),
+                     "sharded one stream": run_one_stream,
+                     "sharded host loop": lambda: run(rmesh, True)}, 1)
+    if n_captures(graphs) != caps:
+        raise AssertionError("[shard] (e) the timed steps captured")
     n = N_ROLLOUT_CAMS * SHARD_ROLLOUT_STEPS
     cps = {k: [n / (t / 1e3) for t in v] for k, v in ms.items()}
     log(f"[shard] (e) rollout{N_ROLLOUT_CAMS} {ROLLOUT_WH[0]}x"
-        f"{ROLLOUT_WH[1]} over {where}: the camera-sharded batch through "
-        f"the batch march graphs (buckets, device: {blocks}) == the "
-        f"unsharded batch, 0 pixels differ; cams/s in turns ({n} cameras "
-        f"a run): sharded {np.round(cps['sharded'], 2).tolist()}, unsharded "
-        f"{np.round(cps['unsharded'], 2).tolist()} ({card_line()})")
+        f"{ROLLOUT_WH[1]} over {where}: the camera-sharded batch, each "
+        f"block in its own batch graph on its own stream (slot, bucket, "
+        f"device: {blocks}; {graph_launches} graph launches a step) == the "
+        f"unsharded batch == the sharded host loop, 0 pixels differ, 0 "
+        f"magenta; {warm}; overlap {ov['txt']}; captures "
+        f"{capture_txt(graphs)}; cams/s in turns ({n} cameras a run): "
+        + "; ".join(f"{k} {np.round(v, 2).tolist()}" for k, v in cps.items())
+        + f" ({card_line()})")
+    return {"cams_per_sec": {k: float(np.median(v)) for k, v in cps.items()},
+            "overlap": ov["ratio"]}
 
 
 def check_shard(card: str, stats: dict, terrain, terrain_lods, layered,
@@ -2682,14 +2989,15 @@ def check_shard(card: str, stats: dict, terrain, terrain_lods, layered,
     ``N_SHARDS`` repeats of it: (a) terrain2048 and (b) layered2048 world
     sharded at the default LOD0 radius and with a strict-subset window, (f)
     the rasterizer's window on a capture of each, (c) the ray-sharded frame
-    on both, (d) the composed mode, one frame each, (e) the camera-sharded
+    on both, (d) the composed mode on both, (e) the camera-sharded
     rollout.  Every screen == the unsharded Renderer's, and in one more run
     of each the kernel calls == their plain versions.  The launch counts
     of the sharded runs (not of their comparisons) are the ``shard``
-    path's, returned by kernel.  With more than one card, (a), (c) and (e)
-    again over the real cards."""
+    path's, returned by kernel.  With more than one card, (a), (c), (d)
+    and (e) again over the real cards."""
     from cpuvox_tpu_torch.parallel import RenderMesh
 
+    t0 = time.perf_counter()
     tally: dict = {}
     dev = terrain.device
     one = [dev] * N_SHARDS
@@ -2700,37 +3008,27 @@ def check_shard(card: str, stats: dict, terrain, terrain_lods, layered,
                                       stats)
                for tag, lods, plain in worlds}
     rmesh = RenderMesh.create(one)
+    summary = {}
     for tag, _lods, plain in worlds:
-        check_ray_sharded(tag, plain, rmesh, where, tally, stats)
-    # (d) composed: the strict-subset window, one camera's rays over rmesh
+        summary[f"(c) {tag}"] = check_ray_sharded(tag, plain, rmesh, where,
+                                                  tally, stats)
     for tag, _lods, plain in worlds:
-        sr = sharded.pop(tag)
-        sr.ray_mesh = rmesh
-        ref = with_lod0(plain, SHARD_LOD0_RADIUS)
-        sr.inner.lod_distances = ref.lod_distances.copy()
-        cam = path_camera(plain, SHARD_PATH_T[1])
-        got = shard_counts_run(tally, lambda: sr.render(cam))
-        compare_screens(f"[shard] {tag} composed", [got], [ref.render(cam)],
-                        stats)
-        held_run(f"(d) {tag} composed", lambda: sr.render(cam), stats)
-        log(f"[shard] (d) {tag} composed: LOD0 over {where} (window "
-            f"{sr._window_key}) and the camera's rays over the same "
-            f"{rmesh.n_ray_shards}: one frame == the unsharded Renderer, 0 "
-            "pixels differ")
-        del sr
-    check_camera_sharded(rmesh, where, tally, stats)
+        summary[f"(d) {tag}"] = check_composed(
+            tag, sharded.pop(tag), plain, rmesh, where, tally, stats)
+    summary["(e)"] = check_camera_sharded(rmesh, where, tally, stats)
     n_cards = torch.cuda.device_count()
     if n_cards > 1:
         cards = [torch.device("cuda", i) for i in range(n_cards)]
         where = f"{n_cards} cards"
         real = RenderMesh.create(cards)
-        check_world_shard("terrain2048", terrain_lods, terrain, cards, where,
-                          {}, stats)
+        sr = check_world_shard("terrain2048", terrain_lods, terrain, cards,
+                               where, {}, stats)
         for tag, _lods, plain in worlds:
             check_ray_sharded(tag, plain, real, where, {}, stats)
+        check_composed("terrain2048", sr, terrain, real, where, {}, stats)
         check_camera_sharded(real, where, {}, stats)
     else:
-        log(f"[shard] one card ({card}): (a), (c) and (e) did not run "
+        log(f"[shard] one card ({card}): (a), (c), (d) and (e) did not run "
             "over several cards")
     if min(tally.get(k, 0) for k in ("roll_chunk", "rasterize_visits",
                                       "reproject_screen",
@@ -2738,6 +3036,8 @@ def check_shard(card: str, stats: dict, terrain, terrain_lods, layered,
         raise AssertionError(f"[shard] launches {tally}: a kernel of the "
                              "path did not run")
     log(f"[shard] launches of the sharded runs: {tally}")
+    log(f"[shard] summary over {N_SHARDS} shards of {dev}: {json.dumps(summary)} "
+        f"({time.perf_counter() - t0:.1f} s for the phase; {card})")
     return tally
 
 
@@ -3429,7 +3729,8 @@ def main() -> int:
             "layered2048": l_launches["march_loop"],
             **{f"loop {p}": loop[p]["launches"]["march_loop"]
                for p in LOOP_PATHS},
-            "rollout64_256x256": rollout["launches"]["march_loop"]}})
+            "rollout64_256x256": rollout["launches"]["march_loop"],
+            "shard": shard["march_loop"]}})
     for p in LOOP_PATHS:
         v = loop[p]
         log(f"[summary] [loop] {p}: fps {v['fps_seq']:.3f} sequential, "

@@ -52,28 +52,25 @@ _CREATE_ARGTYPES = [_P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P,
 
 class StageStats:
     """The iterations march graphs ran at each stage width since the last
-    ``reset``: device sums a schedule, added from a graph's exit buffer
-    without a read, read when asked (``dict(stage_stats.read())``, width ->
-    iterations, summed over the schedules)."""
+    ``reset``: device sums a schedule (one a stream, ``raymarch.
+    device_sum``), added from a graph's exit buffer without a read, read
+    when asked (``dict(stage_stats.read())``, width -> iterations, summed
+    over the schedules and streams)."""
 
     def __init__(self):
-        self._acc: dict[tuple, torch.Tensor] = {}
+        self._acc: dict[tuple, tuple] = {}
 
     def add(self, widths: tuple, exits) -> None:
         """A frame's exit buffer ((n,) int32, the counter at each stage's
         exit) for its stage ``widths``."""
-        key = (tuple(widths), exits.device)
-        acc = self._acc.get(key)
-        if acc is None:
-            acc = self._acc[key] = torch.zeros(len(widths), dtype=torch.int64,
-                                               device=exits.device)
+        acc = rm.device_sum(self._acc, tuple(widths), exits, len(widths))
         acc += exits
         acc[1:] -= exits[:-1]
 
     def read(self) -> dict:
         out: dict[int, int] = {}
-        for (widths, _dev), acc in self._acc.items():
-            for w, n in zip(widths, acc.tolist()):
+        for (widths, _dev, _s), (acc, stream) in self._acc.items():
+            for w, n in zip(widths, rm.read_sum(acc, stream)):
                 out[w] = out.get(w, 0) + int(n)
         return dict(sorted(out.items(), reverse=True))
 

@@ -260,7 +260,9 @@ class ShardedRenderer:
 
     With ``ray_mesh`` (a ``parallel.mesh.RenderMesh``) the two sharding
     modes compose: the active window is replicated over the ray mesh and one
-    camera's rays shard over its devices (``mesh.render_frame_sharded``)."""
+    camera's rays shard over its devices (``mesh.render_frame_sharded``; on
+    the graph route each shard in a march graph of its own, into whose own
+    world a window move is copied, with no capture)."""
 
     def __init__(self, lods: list[WorldLOD], mesh, config=None,
                  tile_cols: int = 256, ray_mesh=None):

@@ -16,7 +16,8 @@ the host rays go up from pinned memory (``ray_init.RayStaging``), so
 frame is done; on the CPU and with the plain versions the host drives the
 march (``graph_route``).  A camera batch (``parallel/batch.py``) marches
 each direction group through a batch graph of its own
-(``march_batch_graph``).
+(``march_batch_graph``), and each shard of ``parallel/`` through one of
+its own (``shard_graph``).
 In ARGB mode (``argb_records`` on a world whose columns hold few enough
 voxels, ``argb_on``) the records carry the columns' colors, phase 1 writes
 final colors and phase 2 samples them with no resolve.
@@ -104,11 +105,14 @@ class Renderer:
     # raybuffer is the same either way
     compact: bool | None = None
     # the march graph (``march_graph.py``), a camera batch's march graphs
-    # by (rays, texels, device), and the host rays' staging (by ray count
+    # by (rays, texels, device), the shards' by (role, slot, rays, texels,
+    # device) (``shard_graph``), and the host rays' staging (by ray count
     # and device); not copied by ``dataclasses.replace``
     _graph: MarchGraph | None = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
     _batch_graphs: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
+    _shard_graphs: dict = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
     _staging: dict = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
@@ -362,17 +366,44 @@ class Renderer:
                                  iteration_direction, static, dda, alive0,
                                  cam_y, cam_y_norm, compact)
 
+    def shard_graph(self, role: str, slot: int, R: int,
+                    device) -> MarchGraph:
+        """The ``MarchGraph`` of shard ``slot`` of a sharded ``role`` ("ray":
+        a slice of one camera's rays, ``parallel/mesh.py``; "cam": a camera
+        block of a batch, ``parallel/batch.py``) at ``R`` rays on
+        ``device``, with a stream of its own (``MarchGraph.stream``).
+        Shards that run at once on one device each march in buffers of
+        their own: a graph is never keyed by its rays, texels and device
+        alone."""
+        P, dev = max(self.render_wh), torch.device(device)
+        key = (role, int(slot), int(R), P, dev)
+        g = self._shard_graphs.get(key)
+        if g is None:
+            g = self._shard_graphs[key] = MarchGraph(
+                R, P, self.device_world.dims[1], self.solid_bounds, dev,
+                own_stream=True)
+        return g
+
+    def graph_variant(self, g: MarchGraph, wa, cam_data,
+                      iteration_direction: int, compact: bool | None = None,
+                      before_capture=None):
+        """``g``'s variant for the Renderer's settings and stage schedule
+        (``stage_widths`` at ``g``'s ray count) against ``wa``, captured
+        on its first use (``MarchGraph.variant``)."""
+        kw = self.march_kwargs()
+        return g.variant(wa, cam_data.lod_distances, cam_data.far_clip,
+                         kw["dims"], iteration_direction, kw["chunk"],
+                         kw["max_chunks"], kw["gated_cells"],
+                         self.stage_widths(g.shape[0], compact),
+                         before_capture=before_capture)
+
     def _graph_march(self, g: MarchGraph, wa, cam_data,
                      iteration_direction: int, static, dda, alive0, cam_y,
                      cam_y_norm=None, compact: bool | None = None):
         """The march of these rays through ``g``'s variant for the
         Renderer's settings and stage schedule, captured on its first
         use."""
-        kw = self.march_kwargs()
-        v = g.variant(wa, cam_data.lod_distances, cam_data.far_clip,
-                      kw["dims"], iteration_direction, kw["chunk"],
-                      kw["max_chunks"], kw["gated_cells"],
-                      self.stage_widths(static.dirs.shape[0], compact))
+        v = self.graph_variant(g, wa, cam_data, iteration_direction, compact)
         return g.march(v, static, dda, alive0, cam_y, cam_y_norm)
 
     def march_kwargs(self, compact: bool | None = None) -> dict:

@@ -14,7 +14,9 @@ kernel sets (``csrc/march_loop.cu``).
 A ``MarchGraph`` belongs to a Renderer (``Renderer.march`` on a CUDA
 Renderer with the kernels; a camera batch's march, ``parallel/batch.py``,
 on such a Renderer in a graph of its own at the group's bucketed ray
-count).  It holds static buffers at the frame's ray count: the rays
+count; each ray shard or camera block of ``parallel/`` in one of its own,
+with a stream of its own, ``Renderer.shard_graph``).  It holds static
+buffers at the frame's ray count: the rays
 (``RayStatic``), the loop's state (``raymarch.MarchState``: the DDA, the
 liveness, the raster state, the iteration counter, the rewind count), the
 per-ray camera height the rasterizer and the gate read, and a live-ray
@@ -53,7 +55,12 @@ quotient by the world's height, both made with its rays), launches the
 graph, adds the iteration, stage and rewind counts to the stats on the
 device, and fills the skybox into a new tensor, so the raybuffer it
 returns does not alias the buffers that the next frame overwrites.  Phase
-2 follows as an eager launch on the same stream.
+2 follows as an eager launch on the same stream.  ``march`` runs on the
+current stream, and the counts go into that stream's accumulators
+(``raymarch.device_sum``).  A shard graph (``own_stream``) has a stream of
+its own that its callers make current, so the graphs of several shards run
+at once on one card, each march of one graph in order on its stream; their
+private pools are apart.
 
 What a capture bakes in is the variant's key: the world arrays (the same
 object), the chunk, the budget, the gated group, the LOD distances, the
@@ -117,7 +124,8 @@ class MarchGraph:
     """Static buffers for ``R`` rays of ``P`` texels on ``device``, and
     the captured march of each variant over them."""
 
-    def __init__(self, R: int, P: int, world_max_y, solid_bounds, device):
+    def __init__(self, R: int, P: int, world_max_y, solid_bounds, device,
+                 own_stream: bool = False):
         dev = torch.device(device)
         f32, i32 = torch.float32, torch.int32
 
@@ -151,6 +159,10 @@ class MarchGraph:
         self.captures: list[dict] = []
         self.pool = (torch.cuda.graph_pool_handle() if dev.type == "cuda"
                      else None)
+        # a shard graph's stream, on which its callers queue its marches
+        # and world copies (``parallel/``); None: the caller's current one
+        self.stream = (torch.cuda.Stream(dev)
+                       if own_stream and dev.type == "cuda" else None)
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -240,11 +252,14 @@ class MarchGraph:
 
     def variant(self, wa: rm.WorldArrays, lod_distances, far_clip, dims,
                 iteration_direction: int, chunk: int, max_chunks: int,
-                group_cells: int, widths=None) -> _Variant:
+                group_cells: int, widths=None,
+                before_capture=None) -> _Variant:
         """The variant for these settings and stage ``widths`` (None: the
         full width alone, the uncompacted march), captured now if it was
         not (or if a setting it baked in changed), on the world arrays
-        ``world`` gives for ``wa``."""
+        ``world`` gives for ``wa``; ``before_capture()``, where given, is
+        called before a capture (the shards wait there for every graph
+        still running, ``parallel/mesh.py``)."""
         R = self._rays.shape[0]
         widths = (R,) if widths is None else tuple(int(w) for w in widths)
         if widths[0] != R or any(b >= a for a, b in zip(widths, widths[1:])):
@@ -257,6 +272,8 @@ class MarchGraph:
         v = self.variants.get(slot)
         if v is not None and v.key == key and v.args.wa is wa:
             return v
+        if before_capture is not None and self.device.type == "cuda":
+            before_capture()
         a = rm.MarchArgs(
             wa, self.static,
             torch.tensor(lod, dtype=torch.float32, device=self.device), far,
@@ -326,8 +343,8 @@ class MarchGraph:
     def march(self, v: _Variant, static: rm.RayStatic, dda: rm.DDAState,
               alive0, cam_y, cam_y_norm=None):
         """One frame's march of variant ``v`` on these rays (``load``'s
-        camera heights): the (R, P) int32 raybuffer after the skybox fill, a
-        tensor of its own."""
+        camera heights), on the current stream: the (R, P) int32 raybuffer
+        after the skybox fill, a tensor of its own."""
         from cpuvox_tpu_torch.ops import march_loop
 
         a = v.args

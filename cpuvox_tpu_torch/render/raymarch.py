@@ -888,16 +888,44 @@ def march_ops(kernels: bool):
     return roll_kernel.roll_chunk_ref, phase1_kernel.rasterize_visits_ref
 
 
+def current_stream(device: torch.device):
+    """The current CUDA stream of ``device``, None off CUDA."""
+    return torch.cuda.current_stream(device) if device.type == "cuda" else None
+
+
+def device_sum(acc: dict, key, v: torch.Tensor, shape=()) -> torch.Tensor:
+    """The int64 accumulator of ``shape`` in ``acc`` that ``v`` adds to:
+    one a ``key``, device and stream (``current_stream``), made where it is
+    first needed.  Marches that run at once on several streams of a card
+    (the shards of ``parallel/mesh.py``) each add to their own, so no two
+    in-place adds race; ``read_sum`` reads one."""
+    s = current_stream(v.device)
+    slot = (key, v.device, None if s is None else s.cuda_stream)
+    hit = acc.get(slot)
+    if hit is None:
+        hit = acc[slot] = (torch.zeros(shape, dtype=torch.int64,
+                                       device=v.device), s)
+    return hit[0]
+
+
+def read_sum(acc: torch.Tensor, stream) -> list | int:
+    """An accumulator of ``device_sum`` read to the host once the stream
+    that adds to it has finished."""
+    if stream is not None:
+        stream.synchronize()
+    return acc.tolist()
+
+
 class MarchStats:
     """Counts of the march since the last reset (``update``): host ints,
     and device tensors that a march added without reading them (a frame's
     rewinds, a march graph's iterations), summed on the device in stream
-    order and read only when a count is asked for.  ``dict(stats)`` gives
-    every count."""
+    order (an accumulator a stream, ``device_sum``) and read only when a
+    count is asked for.  ``dict(stats)`` gives every count."""
 
     def __init__(self, **counts: int):
         self._host = dict(counts)
-        self._device: dict[tuple[str, torch.device], torch.Tensor] = {}
+        self._device: dict[tuple, tuple] = {}
 
     def add(self, **counts) -> None:
         """Add to the counts: an int on the host, a device tensor on its
@@ -906,11 +934,7 @@ class MarchStats:
             if k not in self._host:
                 raise KeyError(k)
             if isinstance(v, torch.Tensor):
-                acc = self._device.get((k, v.device))
-                if acc is None:
-                    acc = self._device[(k, v.device)] = torch.zeros(
-                        (), dtype=torch.int64, device=v.device)
-                acc += v
+                device_sum(self._device, k, v).add_(v)
             else:
                 self._host[k] += v
 
@@ -920,13 +944,15 @@ class MarchStats:
             if k not in self._host:
                 raise KeyError(k)
             self._host[k] = v
-            for (dk, _dev), acc in self._device.items():
+            for (dk, _dev, _s), (acc, stream) in self._device.items():
                 if dk == k:
-                    acc.zero_()
+                    with torch.cuda.stream(stream):
+                        acc.zero_()
 
     def __getitem__(self, key: str) -> int:
-        return self._host[key] + sum(int(acc.item()) for (k, _d), acc
-                                     in self._device.items() if k == key)
+        return self._host[key] + sum(
+            int(read_sum(acc, s)) for (k, _d, _s), (acc, s)
+            in self._device.items() if k == key)
 
     def keys(self):
         return self._host.keys()

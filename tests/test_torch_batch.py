@@ -319,7 +319,8 @@ def test_single_frame_between_batches_keeps_both_graphs(graph_route):
 
 def test_camera_sharded_graph_batch_matches_unsharded(graph_route):
     """7 cameras (4 down, 3 up) over 3 CPU shards in uneven blocks, each
-    block bucketed and marched through its graph == the unsharded batch."""
+    block bucketed and marched through its graph (the shard graph of its
+    slot and bucket, ``Renderer.shard_graph``) == the unsharded batch."""
     from cpuvox_tpu_torch.parallel import RenderMesh
 
     r = Renderer.create(lods(), RenderConfig(**BASE), device="cpu")
@@ -327,7 +328,9 @@ def test_camera_sharded_graph_batch_matches_unsharded(graph_route):
     got = render_camera_batch(r, cams, rmesh=RenderMesh.create(["cpu"] * 3))
     # blocks of 1, 1, 2 down and 1, 1, 1 up
     R1 = r.ray_capacity
-    assert sorted(k[0] for k in r._batch_graphs) == [R1, 2 * R1]
+    assert not r._batch_graphs
+    assert sorted((k[0], k[1], k[2]) for k in r._shard_graphs) == [
+        ("cam", 0, R1), ("cam", 1, R1), ("cam", 2, R1), ("cam", 2, 2 * R1)]
     want = render_camera_batch(r, cams)
     assert got.shape == (7, 48, 64)
     np.testing.assert_array_equal(as_uint32(got), as_uint32(want))
