@@ -22,7 +22,11 @@
 //  - writes the counter to exit_out where there is one (a stage's slot of
 //    the graph's exit buffer: its last write is the counter at the stage's
 //    exit), and sets the WHILE node's condition, count > threshold &&
-//    counter < max_chunks, with cudaGraphSetConditional.
+//    counter < max_chunks, with cudaGraphSetConditional;
+//  - on a sampled frame of a Renderer's frame graph (timer.cuh), folds
+//    the iteration's roll and rasterizer launches and then itself into the
+//    timer buffer and, where it lets an iteration run, adds the live rays
+//    and the stage's width (the slots the iteration marches).
 // What bounds it on the H100: nothing the card does fast.  It reads 2 R
 // bytes and writes R (27 KB at R = 9,088), a few nanoseconds of HBM; a
 // launch is latency: one block's loads, its barriers and thread 0's
@@ -48,10 +52,16 @@
 // body holds only what a conditional body may hold (kernels, memsets,
 // device-to-device copies, child graphs); torch's temporaries live in the
 // captures' private pool.  Conditional nodes need CUDA 12.4 or later.
+//
+// cpuvox_globaltimer reads %globaltimer once (the host maps the card's
+// clock onto its own with it) and cpuvox_globaltimer_steps reads it until
+// it has changed n times (its update granularity).
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "timer.cuh"
 
 namespace {
 
@@ -65,8 +75,12 @@ __global__ void __launch_bounds__(kThreads)
     march_loop_kernel(uint8_t* alive, const uint8_t* rs_alive, int R,
                       int* counter, int max_chunks, int mode, int threshold,
                       int* exit_out, int* cond_out,
-                      cudaGraphConditionalHandle handle, int set_handle) {
+                      cudaGraphConditionalHandle handle, int set_handle,
+                      int width, long long* timer) {
   __shared__ int warp_counts[kWarps];
+  // thread 0's: the sampled word is waited for only at the end
+  const bool timed = threadIdx.x == 0 && cpuvox::timed(timer);
+  const long long start = timer != nullptr ? cpuvox::globaltimer() : 0;
   int count = 0;
   const bool words =
       R % 4 == 0 && ((reinterpret_cast<uintptr_t>(alive) |
@@ -102,6 +116,32 @@ __global__ void __launch_bounds__(kThreads)
     const unsigned int go = total > threshold && i < max_chunks ? 1u : 0u;
     if (cond_out != nullptr) *cond_out = static_cast<int>(go);
     if (set_handle) cudaGraphSetConditional(handle, go);
+    if (timed) {
+      if (go) {
+        timer[cpuvox::kLive] += total;
+        timer[cpuvox::kSlots] += width;
+      }
+      cpuvox::fold_pending(timer, cpuvox::kRollTimer);
+      cpuvox::fold_pending(timer, cpuvox::kRasterTimer);
+      cpuvox::fold_launch(timer, cpuvox::kControlTimer, start,
+                          cpuvox::globaltimer());
+    }
+  }
+}
+
+__global__ void globaltimer_kernel(long long* out) {
+  *out = cpuvox::globaltimer();
+}
+
+__global__ void globaltimer_steps_kernel(long long* out, int n) {
+  long long last = cpuvox::globaltimer();
+  out[0] = last;
+  for (int k = 1; k <= n;) {
+    const long long now = cpuvox::globaltimer();
+    if (now != last) {
+      out[k++] = now;
+      last = now;
+    }
   }
 }
 
@@ -129,12 +169,15 @@ struct Control {
   int* cond_out = nullptr;
   cudaGraphConditionalHandle handle = 0;
   int set_handle = 1;
+  int width = 0;
+  long long* timer = nullptr;
 
   cudaError_t add(cudaGraphNode_t* node, cudaGraph_t graph,
                   const cudaGraphNode_t* dep) {
-    void* args[] = {&alive,     &rs_alive, &R,         &counter,
-                    &max_chunks, &mode,    &threshold, &exit_out,
-                    &cond_out,  &handle,   &set_handle};
+    void* args[] = {&alive,     &rs_alive,   &R,         &counter,
+                    &max_chunks, &mode,      &threshold, &exit_out,
+                    &cond_out,  &handle,     &set_handle, &width,
+                    &timer};
     cudaKernelNodeParams kp = {};
     kp.func = reinterpret_cast<void*>(march_loop_kernel);
     kp.gridDim = dim3(1);
@@ -162,6 +205,7 @@ cudaError_t create(cudaGraph_t graph, cudaGraph_t prologue, int n_stages,
     RETURN_IF(cudaGraphConditionalHandleCreate(&ctl.handle, graph, 0,
                                                cudaGraphCondAssignDefault));
     ctl.threshold = thresholds[k];
+    ctl.width = k == 0 ? ctl.R : thresholds[k - 1];  // the stage's rays
     ctl.exit_out = exits + k;
     ctl.mode = k == 0 ? kFirst : kCheck;
     cudaGraphNode_t check, loop, child, control;
@@ -202,20 +246,37 @@ extern "C" int cpuvox_march_loop(void* alive, void* rs_alive, int R,
       static_cast<uint8_t*>(alive), static_cast<const uint8_t*>(rs_alive), R,
       static_cast<int*>(counter), max_chunks, mode, threshold,
       static_cast<int*>(exit_out), static_cast<int*>(cond_out),
-      cudaGraphConditionalHandle{}, 0);
+      cudaGraphConditionalHandle{}, 0, R, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// %globaltimer into out (int64 (), on the device).
+extern "C" int cpuvox_globaltimer(void* out, void* stream) {
+  globaltimer_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<long long*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// %globaltimer's first n + 1 distinct values read by one thread into out
+// (int64 (n + 1,), on the device).
+extern "C" int cpuvox_globaltimer_steps(void* out, int n, void* stream) {
+  globaltimer_steps_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<long long*>(out), n);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The frame's march graph from the captured prologue, the n_stages bodies
 // and the n_stages - 1 packs (cudaGraph_t each; cloned into child nodes, so
 // the caller keeps them), each stage's threshold, and the exit buffer
-// (int32 (n_stages,)), instantiated into *exec_out.
+// (int32 (n_stages,)), and the timer buffer its control kernels are given
+// (int64 (kTimerWords,), timer.cuh; null: untimed), instantiated into
+// *exec_out.
 extern "C" int cpuvox_march_graph_create(void* prologue, int n_stages,
                                          void** bodies, void** packs,
                                          const int* thresholds, void* alive,
                                          void* rs_alive, int R, void* counter,
                                          int max_chunks, void* exits,
-                                         void** exec_out) {
+                                         void* timer, void** exec_out) {
   *exec_out = nullptr;
   if (n_stages < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaGraph_t graph = nullptr;
@@ -227,6 +288,7 @@ extern "C" int cpuvox_march_graph_create(void* prologue, int n_stages,
   ctl.R = R;
   ctl.counter = static_cast<int*>(counter);
   ctl.max_chunks = max_chunks;
+  ctl.timer = static_cast<long long*>(timer);
   cudaGraphExec_t exec = nullptr;
   err = create(graph, static_cast<cudaGraph_t>(prologue), n_stages,
                reinterpret_cast<cudaGraph_t const*>(bodies),

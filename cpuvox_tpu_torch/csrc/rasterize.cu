@@ -32,6 +32,14 @@
 // cell arrays, its row, state and planes stay in place at full width.  A
 // null index is every ray.  See roll.cu.
 //
+// Timing: a Renderer's frame graph hands the group kernel its timer buffer
+// (timer.cuh); on a sampled frame each block's first thread stamps the
+// launch's start as it begins, and each ray's first lane its end once the
+// ray's state is stored.  Nothing else of the kernel changes: with a
+// barrier and a last-block count at its end the compiler kept the run
+// words in 128 registers, not 96 and an 80-byte stack, and the heaviest
+// terrain2048 frames at 1080p on an H100 took 2-3 % longer.
+//
 // Camera height: a single camera's frame passes cam_y and cam_y_norm =
 // cam_y / world_max_y as scalars (Consts).  A batch of cameras marched
 // together (parallel/batch.py) gives the group kernel both as (R,) arrays,
@@ -118,6 +126,7 @@
 // fails if any kernel brings the fused instruction back.
 
 #include "common.cuh"
+#include "timer.cuh"
 
 namespace {
 
@@ -1072,7 +1081,10 @@ template <int G>
 __global__ void __launch_bounds__(kThreads) rasterize_visits_kernel(
     int* __restrict__ raybuf, const StatePtrs st, const CellSrc cs,
     const World w, const Consts k0, const RayCamY cy,
-    const int* __restrict__ index, int Rk) {
+    const int* __restrict__ index, int Rk, long long* timer) {
+  if (timer != nullptr && threadIdx.x == 0 && timer[cpuvox::kSampled]) {
+    cpuvox::stamp_start(timer, cpuvox::kRasterTimer, cpuvox::globaltimer());
+  }
   extern __shared__ unsigned masks[];
   const Group<G> g(threadIdx.x & 31);
   const int rib = threadIdx.x / G;  // the block's ray
@@ -1173,7 +1185,12 @@ __global__ void __launch_bounds__(kThreads) rasterize_visits_kernel(
                      pb, pt, pd);
     }
   }
-  if (g.sl == 0) st.store(r, s);
+  if (g.sl == 0) {
+    st.store(r, s);
+    if (timer != nullptr && timer[cpuvox::kSampled]) {
+      cpuvox::stamp_end(timer, cpuvox::kRasterTimer);
+    }
+  }
 }
 
 Consts make_consts(float world_max_y, float cam_y, float cam_y_norm,
@@ -1234,7 +1251,8 @@ extern "C" int cpuvox_rasterize_chunk(
 // array of the direction (else null); rwords: the inline run region's words;
 // win: the world-shard tile window, (4,) int32 on the device (null for
 // none);
-// cam_y_ray / cam_y_norm_ray: (R,) f32 a ray, or null for the scalars.
+// cam_y_ray / cam_y_norm_ray: (R,) f32 a ray, or null for the scalars;
+// timer: a frame graph's timer buffer (timer.cuh), or null.
 extern "C" int cpuvox_rasterize_visits(
     void* raybuf, void* nfp_min, void* nfp_max, void* fb_min, void* fb_max,
     void* f_active, void* fdir_min, void* fdir_max, void* alive,
@@ -1244,7 +1262,7 @@ extern "C" int cpuvox_rasterize_visits(
     float world_max_y, float cam_y,
     float cam_y_norm, int has_solid, float solid_min_y, float solid_max_y,
     int dir, void* cam_y_ray, void* cam_y_norm_ray, void* index, int Rk,
-    int P, void* stream) {
+    int P, void* timer, void* stream) {
   if (Rk > 0 && C > 0) {
     const World w{static_cast<const int*>(rec), static_cast<const int*>(runs),
                   static_cast<const int*>(col_base),
@@ -1266,7 +1284,7 @@ extern "C" int cpuvox_rasterize_visits(
                     solid_max_y, dir, P),
         RayCamY{static_cast<const float*>(cam_y_ray),
                 static_cast<const float*>(cam_y_norm_ray)},
-        static_cast<const int*>(index), Rk);
+        static_cast<const int*>(index), Rk, static_cast<long long*>(timer));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -38,11 +38,17 @@
 // which sorts every per-ray array because a jitted TPU program needs static
 // shapes: here the dead rays cost no thread and no visit row.
 //
+// Timing: a Renderer's frame graph hands the kernel its timer buffer
+// (timer.cuh); on a sampled frame each block's first thread stamps the
+// launch's start (its clock as it began) and end once its ray is rolled,
+// the sampled word read as it begins and waited for only then.
+//
 // Bit-exactness: the roll has no a*b+c shape (built with -fmad=false all the
 // same), the step keeps `tmax + (bump ? tdelta : 0.0f)`, which maps -0.0 to
 // +0.0 like the reference, and min/max propagate NaN (common.cuh).
 
 #include "common.cuh"
+#include "timer.cuh"
 
 namespace {
 
@@ -73,7 +79,10 @@ __global__ void __launch_bounds__(kBlock) roll_chunk_kernel(
     float* __restrict__ ids, int* __restrict__ lod,
     uint8_t* __restrict__ alive, const float* __restrict__ dirs,
     const float* __restrict__ lod_dist, int nld, float far_clip, int X, int Z,
-    int C, const int* __restrict__ index, int Rk, int* __restrict__ visits) {
+    int C, const int* __restrict__ index, int Rk, int* __restrict__ visits,
+    long long* timer) {
+  const bool stamps = threadIdx.x == 0 && cpuvox::timed(timer);
+  const long long began = timer != nullptr ? cpuvox::globaltimer() : 0;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= Rk) return;
   const int r = index ? index[t] : t;
@@ -168,6 +177,10 @@ __global__ void __launch_bounds__(kBlock) roll_chunk_kernel(
   ids[2 * r + 1] = i1;
   lod[r] = lv;
   alive[r] = al ? 1 : 0;
+  if (stamps) {
+    cpuvox::stamp_start(timer, cpuvox::kRollTimer, began);
+    cpuvox::stamp_end(timer, cpuvox::kRollTimer);
+  }
 }
 
 }  // namespace
@@ -177,7 +190,7 @@ extern "C" int cpuvox_roll_chunk(void* pos, void* tmax, void* tdelta,
                                  void* dirs, void* lod_dist, int nld,
                                  float far_clip, int X, int Z, int C,
                                  void* index, int Rk, void* visits,
-                                 void* stream) {
+                                 void* timer, void* stream) {
   if (Rk > 0) {
     auto kernel = kLodRegisters && nld <= kMaxLods ? roll_chunk_kernel<true>
                                                    : roll_chunk_kernel<false>;
@@ -188,7 +201,8 @@ extern "C" int cpuvox_roll_chunk(void* pos, void* tmax, void* tdelta,
         static_cast<float*>(ids), static_cast<int*>(lod),
         static_cast<uint8_t*>(alive), static_cast<const float*>(dirs),
         static_cast<const float*>(lod_dist), nld, far_clip, X, Z, C,
-        static_cast<const int*>(index), Rk, static_cast<int*>(visits));
+        static_cast<const int*>(index), Rk, static_cast<int*>(visits),
+        static_cast<long long*>(timer));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,6 +10,7 @@ Usage:
   python -m cpuvox_tpu_torch.demo --scene terrain --flythrough --frames 24
   python -m cpuvox_tpu_torch.demo --obj model.obj --device cpu      # no card
   python -m cpuvox_tpu_torch.demo --scene terrain --world-shard --tile-cols 128
+  python -m cpuvox_tpu_torch.demo --scene terrain --frames 24 --profile
 
 Render modes mirror the reference's keys 1/2/3 (screen buffer / raw raybuffer
 views, UnityManager.cs:126-146); frames are written as PPM (plus PNG when PIL
@@ -59,7 +60,10 @@ def parse_args(argv=None):
                     help="world-shard tile side in columns (power of two)")
     ap.add_argument("--lod-error", type=float, default=1.0)
     ap.add_argument("--out", default="demo_frames")
-    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--profile", action="store_true",
+                    help="print each phase's time, and write the recorder's "
+                    "Chrome trace (host spans, sampled march-graph spans) "
+                    "to OUT/trace.json")
     return ap.parse_args(argv)
 
 
@@ -112,6 +116,8 @@ def main(argv=None):
     from cpuvox_tpu_torch.utils.profiling import FrameProfiler
 
     prof = FrameProfiler(args.device)
+    if args.profile:
+        prof.start_device_trace(args.out)
     lods = build_world(args)
     dims = lods[0].dims
     w, h = args.width, args.height
@@ -172,6 +178,7 @@ def main(argv=None):
 
     if args.profile:
         print(prof.report(), file=sys.stderr)
+        print(f"trace -> {prof.stop_device_trace()}", file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -6,12 +6,15 @@ with a plain C interface (no PyTorch headers: seconds, not minutes), one
 in ``csrc/build/``, named by a hash of the sources, so an edited source is
 rebuilt and an unchanged one is reused.
 Each C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; ``check`` raises on a non-zero code.
+``cudaGetLastError()``; ``check`` raises on a non-zero code.  The march's
+kernels take a timer buffer (``csrc/timer.cuh``): the one ``timing`` hands
+them while a Renderer's frame graph is captured, else none.
 
 Nothing here runs at import: the CPU-only test machine has no ``nvcc``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -31,6 +34,7 @@ NVCC_FLAGS = [*COMPILE_FLAGS, "-shared"]  # sources straight to a library
 _lock = threading.Lock()
 _lib = None
 _functions: dict[str, ctypes._CFuncPtr] = {}
+_timer = None  # the timer buffer of ``timing``, or None
 
 
 def _nvcc() -> str:
@@ -130,6 +134,24 @@ def counted() -> bool:
     import torch
 
     return not torch.cuda.is_current_stream_capturing()
+
+
+@contextlib.contextmanager
+def timing(timer):
+    """Hand ``timer`` (an int64 tensor, ``csrc/timer.cuh``; None: none) to
+    the roll, rasterizer and control kernels launched inside: the march
+    graph's bodies as they are captured."""
+    global _timer
+    prev, _timer = _timer, timer
+    try:
+        yield
+    finally:
+        _timer = prev
+
+
+def timer_ptr():
+    """The data pointer of ``timing``'s buffer, or None."""
+    return None if _timer is None else _timer.data_ptr()
 
 
 def require(t, dtype, shape=None, name="tensor"):

@@ -23,11 +23,15 @@ device only when asked), and ``kernel_launches`` adds them to the
 wrappers' counts (an iteration launches the roll, the rasterizer and the
 control kernel once each).  ``stage_stats`` holds the iterations by stage
 width.  A wrapper called while its stream is being captured does not
-count: that call records a launch, it makes none.
+count: that call records a launch, it makes none.  A Renderer's frame
+graph also times its kernels on sampled frames (``csrc/timer.cuh``,
+``render/march_graph.py``); ``globaltimer_anchor`` maps the card's clock
+onto the host's.
 """
 from __future__ import annotations
 
 import ctypes
+import time
 
 import torch
 
@@ -46,7 +50,7 @@ FIRST, NEXT, CHECK = 0, 1, 2
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LOOP_ARGTYPES = [_P, _P, _I, _P, _I, _I, _I, _P, _P, _P]
-_CREATE_ARGTYPES = [_P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P,
+_CREATE_ARGTYPES = [_P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
                     ctypes.POINTER(_P)]
 
 
@@ -143,13 +147,14 @@ class MarchGraphExec:
     (``torch.cuda.CUDAGraph``s made with ``keep_graph=True``; ``packs`` one
     fewer than ``bodies``), on the state's ``alive``, ``rs_alive`` and ()
     int32 ``counter``, each stage's threshold (``thresholds``: the next
-    stage's width, 0 for the last) and the (stages,) int32 ``exits``.  The
+    stage's width, 0 for the last) and the (stages,) int32 ``exits``; its
+    control kernels get ``timer`` (``csrc/timer.cuh``; None: untimed).  The
     captures must outlive it (their private pool holds the bodies'
     temporaries); it keeps them.  Raises if the graph cannot be built or
     instantiated."""
 
     def __init__(self, prologue, bodies, packs, thresholds, alive, rs_alive,
-                 counter, max_chunks: int, exits):
+                 counter, max_chunks: int, exits, timer=None):
         n = len(bodies)
         if len(packs) != n - 1 or len(thresholds) != n or n < 1:
             raise ValueError(f"{n} bodies, {len(packs)} packs and "
@@ -157,7 +162,7 @@ class MarchGraphExec:
         R = alive.shape[0]
         g = _build.require
         self._keep = (prologue, bodies, packs, alive, rs_alive, counter,
-                      exits)
+                      exits, timer)
         self._exec = _P()
         self._destroy = _build.function("cpuvox_march_graph_destroy", [_P])
         fn = _build.function("cpuvox_march_graph_create", _CREATE_ARGTYPES)
@@ -169,6 +174,8 @@ class MarchGraphExec:
                   g(rs_alive, torch.bool, (R,), "rs_alive"), R,
                   g(counter, torch.int32, (), "counter"), int(max_chunks),
                   g(exits, torch.int32, (n,), "exits"),
+                  None if timer is None else g(timer, torch.int64, None,
+                                               "timer"),
                   ctypes.byref(self._exec))
         _build.check(code, "cpuvox_march_graph_create")
 
@@ -182,6 +189,31 @@ class MarchGraphExec:
         if getattr(self, "_exec", None):
             self._destroy(self._exec)
             self._exec = _P()
+
+
+def globaltimer_anchor(device) -> tuple[int, int]:
+    """(host ns, card ns): ``time.perf_counter_ns()`` and the card's
+    ``%globaltimer`` at one moment, the host's the midpoint of a one-thread
+    launch that reads the card's, after a sync.  Syncs."""
+    out = torch.zeros((), dtype=torch.int64, device=device)
+    fn = _build.function("cpuvox_globaltimer", [_P, _P])
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter_ns()
+    _build.check(fn(out.data_ptr(), _build.stream_ptr(out)),
+                 "cpuvox_globaltimer")
+    torch.cuda.synchronize(device)
+    t1 = time.perf_counter_ns()
+    return (t0 + t1) // 2, int(out.item())
+
+
+def globaltimer_steps(device, n: int = 256) -> list:
+    """The card's ``%globaltimer`` as one thread sees it change, ``n``
+    steps in ns: its update granularity.  Syncs."""
+    out = torch.zeros(n + 1, dtype=torch.int64, device=device)
+    fn = _build.function("cpuvox_globaltimer_steps", [_P, _I, _P])
+    _build.check(fn(out.data_ptr(), n, _build.stream_ptr(out)),
+                 "cpuvox_globaltimer_steps")
+    return out.diff().tolist()
 
 
 def kernel_launches() -> dict:

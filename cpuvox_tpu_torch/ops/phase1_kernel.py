@@ -76,10 +76,10 @@ _F = ctypes.c_float
 _CHUNK_ARGTYPES = ([_P] * 21 + [_F, _F, _F, _I, _F, _F, _I, _I, _I, _I, _P,
                                 _I, _I, _P])
 # 9 state + 3 static pointers; visits, packed, proc, C; the world and its
-# tile window; scalars; the per-ray camera height (or nulls)
+# tile window; scalars; the per-ray camera height (or nulls); the timer
 _VISITS_ARGTYPES = ([_P] * 12 + [_P, _P, _P, _I, _P, _I, _I, _P, _I, _I, _I,
                                  _P, _P, _P, _F, _F, _F, _I, _F,
-                                 _F, _I, _P, _P, _P, _I, _I, _P])
+                                 _F, _I, _P, _P, _P, _I, _I, _P, _P])
 
 
 def rasterize_visits_ref(rs: rm.RasterState, wa: rm.WorldArrays, cells,
@@ -192,7 +192,7 @@ def rasterize_visits(rs: rm.RasterState, wa: rm.WorldArrays, cells,
               else g(wa.win, torch.int32, (4,), "win"),
               *_scalars(consts, iteration_direction), *_cam_y_ptrs(consts, R),
               None if index is None else g(index, torch.int32, (Rk,), "index"),
-              Rk, P, _build.stream_ptr(rs.raybuf))
+              Rk, P, _build.timer_ptr(), _build.stream_ptr(rs.raybuf))
     _build.check(code, "cpuvox_rasterize_visits")
     if _build.counted():
         launches += 1

@@ -41,7 +41,7 @@ roll_chunk_ref = rm._roll_chunk
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 9 + [_I, ctypes.c_float, _I, _I, _I, _P, _I, _P, _P]
+_ARGTYPES = [_P] * 9 + [_I, ctypes.c_float, _I, _I, _I, _P, _I, _P, _P, _P]
 
 
 def roll_chunk(dda: rm.DDAState, alive, dirs, lod_distances, far_clip, dims,
@@ -77,7 +77,8 @@ def roll_chunk(dda: rm.DDAState, alive, dirs, lod_distances, far_clip, dims,
     fn = _build.function("cpuvox_roll_chunk", _ARGTYPES)
     code = fn(*ptrs, nld, float(np.float32(far_clip)),
               int(dims[0]), int(dims[2]), chunk, p_index, Rk,
-              visits.data_ptr(), _build.stream_ptr(visits))
+              visits.data_ptr(), _build.timer_ptr(),
+              _build.stream_ptr(visits))
     _build.check(code, "cpuvox_roll_chunk")
     if _build.counted():
         launches += 1

@@ -26,8 +26,13 @@ final colors and phase 2 samples them with no resolve.
 the plain torch versions of the kernels (the twin), anything else the
 hand-written CUDA kernels (which take their plain versions on a CPU tensor).
 Unlike the JAX package, neither the gate nor ARGB mode depends on the
-backend: the plain versions run the gated march and the ARGB write too.  The Renderer works on the card unless it
-is asked for another device.
+backend: the plain versions run the gated march and the ARGB write too.
+The Renderer works on the card unless it is asked for another device.
+
+``utils/profiling.PROFILER`` records each ``render_device`` call as a
+frame, with host spans around the set-up's parts and the march and phase-2
+enqueues, and the Renderer's creation as process spans; the march graph
+times its kernels on the frames it samples.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ import numpy as np
 import torch
 
 from cpuvox_tpu_torch.config import RenderConfig
+from cpuvox_tpu_torch.utils import profiling
 
 from . import camera as cm
 from . import device as world_device
@@ -121,12 +127,15 @@ class Renderer:
     def create(cls, lods, config: RenderConfig = RenderConfig(),
                device="cuda", compact: bool | None = None):
         _check_supported(config)
-        dw = world_device.build_device_world(
-            lods, skybox_rgb=config.skybox_rgb,
-            inline_colors=config.argb_records)
+        rec = profiling.PROFILER
+        with rec.process_span("world_pack"):
+            dw = world_device.build_device_world(
+                lods, skybox_rgb=config.skybox_rgb,
+                inline_colors=config.argb_records)
         r = cls(device_world=dw, config=config, device=torch.device(device),
                 compact=compact)
-        r._wa = raymarch.world_arrays(dw, r.device)
+        with rec.process_span("world_upload"):
+            r._wa = raymarch.world_arrays(dw, r.device)
         return r
 
     @classmethod
@@ -241,12 +250,16 @@ class Renderer:
         """The host side of a frame without its rays: camera snapshot,
         segments and reprojection tables (``static``, ``dda`` and ``alive0``
         None)."""
-        cam, cam_data = self.setup_camera(cam)
-        vp_screen = cm.vanishing_point_screen(cam, cm.vanishing_point_world(cam))
-        segs = sg.build_segments(cam, vp_screen)
-        ctxs = sg.build_segment_contexts(cam, segs, vp_screen)
-        n_td = segs[0].ray_count + segs[1].ray_count
-        tables = reproject.reproject_tables(segs, ctxs, vp_screen, n_td)
+        rec = profiling.PROFILER
+        with rec.span("geometry"):
+            cam, cam_data = self.setup_camera(cam)
+            vp_screen = cm.vanishing_point_screen(
+                cam, cm.vanishing_point_world(cam))
+            segs = sg.build_segments(cam, vp_screen)
+            ctxs = sg.build_segment_contexts(cam, segs, vp_screen)
+        with rec.span("tables"):
+            n_td = segs[0].ray_count + segs[1].ray_count
+            tables = reproject.reproject_tables(segs, ctxs, vp_screen, n_td)
         return FrameSetup(
             cam=cam, cam_data=cam_data, segs=segs, ctxs=ctxs,
             vp_screen=vp_screen, tables=tables, static=None, dda=None,
@@ -273,19 +286,24 @@ class Renderer:
         tables and the initial rays, ``R`` of them (``ray_capacity`` for
         None) on ``device`` (the Renderer's for None), built on the host or
         on the device as ``config.host_init`` says."""
-        f = self.frame_geometry(cam)
-        if self.config.host_init:
-            R = self.ray_capacity if R is None else R
-            device = torch.device(self.device if device is None else device)
-            staging = self._staging.get((R, device))
-            if staging is None:
-                staging = self._staging[(R, device)] = ray_init.RayStaging(
-                    R, device)
-            static, dda, alive0, _meta = ray_init.init_rays(
-                f.cam_data, f.segs, f.ctxs, self.device_world.dims,
-                fixed_size=R, device=device, staging=staging)
-        else:
-            static, dda, alive0 = self.init_rays_device(f, R=R, device=device)
+        rec = profiling.PROFILER
+        with rec.span("frame_setup"):
+            f = self.frame_geometry(cam)
+            with rec.span("rays"):
+                if self.config.host_init:
+                    R = self.ray_capacity if R is None else R
+                    device = torch.device(self.device if device is None
+                                          else device)
+                    staging = self._staging.get((R, device))
+                    if staging is None:
+                        staging = self._staging[(R, device)] = \
+                            ray_init.RayStaging(R, device)
+                    static, dda, alive0, _meta = ray_init.init_rays(
+                        f.cam_data, f.segs, f.ctxs, self.device_world.dims,
+                        fixed_size=R, device=device, staging=staging)
+                else:
+                    static, dda, alive0 = self.init_rays_device(
+                        f, R=R, device=device)
         return f._replace(static=static, dda=dda, alive0=alive0)
 
     def graph_route(self, device=None) -> bool:
@@ -338,7 +356,8 @@ class Renderer:
         g = self._graph
         if g is None or g.shape != (R, P):
             g = self._graph = MarchGraph(R, P, self.device_world.dims[1],
-                                         self.solid_bounds, self.device)
+                                         self.solid_bounds, self.device,
+                                         timed=True)
         return self._graph_march(g, self._wa, f.cam_data,
                                  f.iteration_direction, f.static, f.dda,
                                  f.alive0, f.cam_data.position[1],
@@ -443,10 +462,16 @@ class Renderer:
         colors, frame geometry).  On a CUDA Renderer with the kernels it
         returns before the frame is done and reads nothing from the device:
         the rays go up from pinned memory, the march is one graph launch,
-        phase 2 one kernel launch; the raybuffer is the frame's own."""
-        f = self.frame_setup(cam)
-        raybuf_idx = self.march(f)
-        return self.phase2(f, raybuf_idx), raybuf_idx, (
+        phase 2 one kernel launch; the raybuffer is the frame's own.  The
+        call is a frame of ``profiling.PROFILER``."""
+        rec = profiling.PROFILER
+        with rec.frame():
+            f = self.frame_setup(cam)
+            with rec.span("march"):
+                raybuf_idx = self.march(f)
+            with rec.span("phase2"):
+                screen = self.phase2(f, raybuf_idx)
+        return screen, raybuf_idx, (
             f.segs, f.ctxs, f.vp_screen, f.cam_data, f.cam)
 
     def phase2_args(self, f: FrameSetup, raybuf_idx: torch.Tensor) -> tuple:

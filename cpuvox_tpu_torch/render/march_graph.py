@@ -71,6 +71,15 @@ refreshed in place from each new set of the same layout (``world``), so a
 swap costs a copy a table and no capture.  A failed capture,
 instantiation or launch raises.
 
+A Renderer's frame graph (``timed``) also holds a timer buffer
+(``csrc/timer.cuh``) that its roll, rasterizer and control kernels are
+given at capture: before each launch the frame's buffer is set for a
+sampled or an unsampled frame (``utils/profiling.Recorder.device_row``)
+and, after a sampled one, copied into the frame's row of the recorder's
+device ring, each a device-to-device copy in stream order; a batch or
+shard graph is untimed.  Each capture is a ``graph_capture`` process span
+of the recorder, with the numbers it adds to ``captures``.
+
 On a CPU device the same buffers, stages, packs and in-place iteration run
 with the host reading each condition (``march``): the plain version of the
 graph, which the CPU tests hold against the functional ``march_step`` /
@@ -83,6 +92,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from cpuvox_tpu_torch.utils import profiling
 
 from . import raymarch as rm
 
@@ -125,7 +136,7 @@ class MarchGraph:
     the captured march of each variant over them."""
 
     def __init__(self, R: int, P: int, world_max_y, solid_bounds, device,
-                 own_stream: bool = False):
+                 own_stream: bool = False, timed: bool = False):
         dev = torch.device(device)
         f32, i32 = torch.float32, torch.int32
 
@@ -163,6 +174,15 @@ class MarchGraph:
         # and world copies (``parallel/``); None: the caller's current one
         self.stream = (torch.cuda.Stream(dev)
                        if own_stream and dev.type == "cuda" else None)
+        # a frame graph's timer buffer (None: untimed), its starts as an
+        # unsampled and a sampled frame, whether it holds a sampled one,
+        # and the card's clock's offset to the host's (at the first capture)
+        self.timer = self._timer_init = None
+        self._sampled = False
+        self.clock_offset_ns = None
+        if timed and dev.type == "cuda":
+            self._timer_init = profiling.timer_init(dev)
+            self.timer = self._timer_init[0].clone()
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -288,9 +308,18 @@ class MarchGraph:
         return v
 
     def _capture(self, a: rm.MarchArgs, slot, widths, exits):
-        from cpuvox_tpu_torch.ops import march_loop
+        with profiling.PROFILER.process_span("graph_capture") as numbers:
+            exec_ = self._capture_variant(a, slot, widths, exits)
+            numbers.update(self.captures[-1])
+        return exec_
+
+    def _capture_variant(self, a: rm.MarchArgs, slot, widths, exits):
+        from cpuvox_tpu_torch.ops import _build, march_loop
 
         dev = self.device
+        if self.timer is not None and self.clock_offset_ns is None:
+            host, card = march_loop.globaltimer_anchor(dev)
+            self.clock_offset_ns = host - card
         t0 = time.perf_counter()
         # one eager iteration a stage on dead rays, and the packs: the
         # kernels load and torch's ops make their first-use calls before the
@@ -320,7 +349,9 @@ class MarchGraph:
             bodies, packs = [], []
             for k, w in enumerate(widths):
                 s0, r0 = time.perf_counter(), torch.cuda.memory_reserved(dev)
-                bodies.append(captured(lambda: self.body(a, self.index(w))))
+                with _build.timing(self.timer):
+                    bodies.append(captured(
+                        lambda: self.body(a, self.index(w))))
                 if k + 1 < len(widths):
                     packs.append(captured(lambda: self.pack(widths[k + 1])))
                 stages.append({
@@ -330,7 +361,8 @@ class MarchGraph:
         t2 = time.perf_counter()
         exec_ = march_loop.MarchGraphExec(
             prologue, bodies, packs, thresholds(widths), self.state.alive,
-            self.state.rs.alive, self.state.i, a.max_chunks, exits)
+            self.state.rs.alive, self.state.i, a.max_chunks, exits,
+            self.timer)
         t3 = time.perf_counter()
         self.captures.append({
             "direction": slot[0], "gated": slot[1] > 0, "widths": widths,
@@ -339,6 +371,19 @@ class MarchGraph:
             "pool_bytes": torch.cuda.memory_reserved(dev) - reserved,
             "stages": stages})
         return exec_
+
+    def _timer_frame(self):
+        """The frame's row of the recorder's device ring if it samples the
+        frame (None if not, or untimed), with the timer buffer set for a
+        sampled or an unsampled frame in stream order (no copy between two
+        unsampled frames)."""
+        if self.timer is None:
+            return None
+        row = profiling.PROFILER.device_row(self.device, self.clock_offset_ns)
+        if row is not None or self._sampled:
+            self.timer.copy_(self._timer_init[int(row is not None)])
+            self._sampled = row is not None
+        return row
 
     def march(self, v: _Variant, static: rm.RayStatic, dda: rm.DDAState,
               alive0, cam_y, cam_y_norm=None):
@@ -351,7 +396,10 @@ class MarchGraph:
         self.load(static, dda, alive0, cam_y, cam_y_norm)
         s = self.state
         if v.exec is not None:
+            row = self._timer_frame()
             v.exec.launch(torch.cuda.current_stream(self.device))
+            if row is not None:
+                row.copy_(self.timer)
             march_loop.graph_stats.add(launches=1, checks=len(v.widths),
                                        iterations=s.i)
         else:  # the plain version: the host reads each condition

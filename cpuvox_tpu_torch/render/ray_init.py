@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cpuvox_tpu_torch.utils import profiling
+
 from . import camera as cm
 from . import segments as sg
 from .raymarch import DDAState, RayStatic
@@ -190,7 +192,8 @@ class RayStaging:
         k = self.next
         self.next ^= 1
         if self.events[k] is not None:
-            self.events[k].synchronize()
+            with profiling.PROFILER.span("staging_wait"):
+                self.events[k].synchronize()
         values = {**static, **dda, "alive": alive}
         for (name, _cols, dtype), v in zip(RAY_FIELDS, self._views(self.host[k])):
             x = values[name]

@@ -132,12 +132,39 @@ def test_frame_profiler_counts_and_formats():
     assert p.report() == "" and not p.counts
 
 
-def test_frame_profiler_trace(tmp_path):
+def test_frame_profiler_trace(tmp_path, monkeypatch):
+    """The recorder's Chrome trace from ``start_device_trace`` to
+    ``stop_device_trace``: the frames rendered in between with their host
+    spans and the profiler's scopes, and nothing from before."""
+    import json
+
+    from cpuvox_tpu_torch.render import camera as cm
+    from cpuvox_tpu_torch.render.frame import Renderer
+    from cpuvox_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(profiling, "PROFILER", profiling.Recorder())
+    monkeypatch.setattr(profiling, "ENABLED", True)
+    r = Renderer.create([scenes.tower_world()] * 6,
+                        RenderConfig(width=32, height=24), device="cpu")
+    cam = cm.Camera(position=(8.0, 9.0, -6.0), pitch_deg=10.0, yaw_deg=0.0,
+                    screen=(32, 24))
+    r.render_device(cam)
     p = FrameProfiler("cpu")
     p.start_device_trace(str(tmp_path))
-    torch.ones(64).sum()
-    p.stop_device_trace()
-    assert (tmp_path / "trace.json").stat().st_size > 0
+    with p.scope("render"):
+        r.render_device(cam)
+    path = p.stop_device_trace()
+    assert path == str(tmp_path / "trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e["name"] for e in events}
+    assert {"frame 1", "render", "frame_setup", "geometry", "tables", "rays",
+            "march", "phase2"} <= names
+    assert not names & {"frame 0", "world_pack", "world_upload"}
+    assert all(e["ph"] == "X" and e["dur"] >= 0 for e in events)
+    frame = next(e for e in events if e["name"] == "frame 1")
+    setup = next(e for e in events if e["name"] == "frame_setup")
+    assert frame["ts"] <= setup["ts"] and frame["tid"] == setup["tid"]
 
 
 @pytest.mark.cuda
@@ -165,6 +192,7 @@ def test_demo_converts_and_renders_on_cpu(tmp_path):
                "--out", str(out), "--profile"])
     assert (out / "frame_000.ppm").stat().st_size > 0
     assert (tmp_path / "tri.world").stat().st_size > 0
+    assert (out / "trace.json").stat().st_size > 0
 
 
 @pytest.mark.parametrize("argv,error", [

@@ -1,0 +1,22 @@
+"""The march graph's loop control, ms on the card a frame: the control kernel's
+launches and the time from each one's end to the next kernel's start (the
+WHILE node's turn to the next iteration, the live-ray packs between stages),
+by the card's clock (the kernels' own sampled timers, ``csrc/timer.cuh``),
+the mean over the sampled frames among the last ``t.frames`` frames the
+program rendered, read from its recorder
+(``cpuvox_tpu_torch/utils/profiling.PROFILER``).  The four parts (roll,
+rasterizer, gate glue, march control) partition the graph's time from the
+first control kernel's start to the last one's end.  None where the program
+times nothing (the CPU, a program without the timers) or kept fewer frames
+than the window's."""
+
+MOVES = "fps"
+
+
+def read(t):
+    try:
+        from cpuvox_tpu_torch.utils.profiling import PROFILER
+        s = PROFILER.summary(t.frames)
+    except (ImportError, AttributeError):
+        return None
+    return None if s is None else s["device_ms"].get("march_control")

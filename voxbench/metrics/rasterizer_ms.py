@@ -1,0 +1,21 @@
+"""The rasterizer kernel inside the march graph (``csrc/rasterize.cu``), ms on
+the card a frame: its launches' spans, each from its first block's start to
+its last block's end by the card's clock (the kernels' own sampled timers,
+``csrc/timer.cuh``), the mean over the sampled frames among the last
+``t.frames`` frames the program rendered, read from its recorder
+(``cpuvox_tpu_torch/utils/profiling.PROFILER``).  The four parts (roll,
+rasterizer, gate glue, march control) partition the graph's time from the
+first control kernel's start to the last one's end.  None where the program
+times nothing (the CPU, a program without the timers) or kept fewer frames
+than the window's."""
+
+MOVES = "fps"
+
+
+def read(t):
+    try:
+        from cpuvox_tpu_torch.utils.profiling import PROFILER
+        s = PROFILER.summary(t.frames)
+    except (ImportError, AttributeError):
+        return None
+    return None if s is None else s["device_ms"].get("rasterizer")
