@@ -55,15 +55,18 @@ non-zero (no phase catches its own failure):
 6. layered2048, the occupancy-gated march (``bench.py``'s deep, mostly
    empty headline scene; its world built and cached in a child process
    while phases 3-5 run): (a) the device world, whose gate must resolve on,
-   and device against host init at its dims; (b) the roll at chunk 128 and
-   both rasterizers on a packed group of 16 gated cells at MAXR 29, mid-march,
-   with the live-ray index and at full width, against their plain versions,
-   in both iteration directions; (c) one 320x180 frame five ways, equal
-   raybuffers and screens: gated kernels, gated plain versions, dense
-   kernels, gated kernels without compaction, gated kernels with device ray
-   init; (d) the 1920x1080 flythrough
-   (24 frames) with 0 magenta, every kernel launched and busy rays rewound;
-   (e) phase 2 on a 1080p frame;
+   and device against host init at its dims; (b) the roll at chunk 128, the
+   gate kernel, both rasterizers on a packed group of 16 gated cells at
+   MAXR 29 and the rewind kernel, mid-march, with the live-ray index and at
+   full width, against their plain versions, in both iteration directions;
+   (c) one 320x180 frame five ways, equal raybuffers and screens: gated
+   kernels, gated plain versions, dense kernels, gated kernels without
+   compaction, gated kernels with device ray init; (d) the 1920x1080
+   flythrough (24 frames) with 0 magenta, every kernel launched, busy rays
+   rewound and the gate and rewind kernels each launched once a gated
+   iteration (counted by the kernels on the device, with the gate's steps
+   past its tile budget; so are [loop]'s flythroughs and the shard path's
+   counted runs); (e) phase 2 on a 1080p frame;
 7. each kernel's time against its plain version, its bound and, where
    PyTorch calls compute the same function, their time, at each path's
    shapes: per call by CUDA events around one Python call, and the
@@ -210,8 +213,11 @@ and read just after each; launches made to compare or time a kernel are
 not counted; a march graph's launches are counted on the device
 (``ops/march_loop.kernel_launches``).  The last lines are the card line,
 one JSON line of kernels (``launches_by_path`` per path; the batched phase
-2, ``reproject_screens``, and the loop-control kernel, ``march_loop``, have
-their own entries), and
+2, ``reproject_screens``, the loop-control kernel, ``march_loop``, and the
+gated march's ``gate`` and ``gate_rewind``, timed at layered2048's shapes,
+have their own entries; theirs are the launches each kernel counted on the
+device, on the layered flythrough, each [loop] flythrough and the shard
+path's runs, beside the gated iterations of each), and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -245,6 +251,11 @@ KERNELS = [  # name, source, the TPU kernel it replaces
 LOOP_KERNEL = ("march_loop", "cpuvox_tpu_torch/csrc/march_loop.cu",
                "cpuvox_tpu/render/raymarch.py:928")
 LOOP_PATHS = ("terrain2048", "terrain2048 ARGB", "layered2048")
+# the gated march's glue: no Pallas kernel computes it on the TPU, XLA code
+# inside the jitted while_loop does
+GATE_KERNELS = [("gate", "cpuvox_tpu/render/raymarch.py:1228"),
+                ("gate_rewind", "cpuvox_tpu/render/raymarch.py:1547")]
+GATE_SOURCE = "cpuvox_tpu_torch/csrc/gate.cu"
 # the fused phase-2 kernel's f32 and integer operations: a segment's score
 # at a pixel (two correctly rounded divisions, counted as one each), and
 # then a pixel's ray index, sample address and resolve
@@ -334,6 +345,67 @@ def raster_both(cap, stats: dict):
                                         index=cap.index)
     compare("rasterize_chunk", old, want, stats)
     return want, int((want.raybuf >= 0).sum() - (cap.rs.raybuf >= 0).sum())
+
+
+def gate_both(cap, dims, stats: dict) -> dict:
+    """The gate kernel and the rewind kernel against their plain versions
+    (``ops/gate_kernel.gate_ref``, ``rewind_ref``) on a capture's gated
+    iteration: the chunk rolled again from the captured state, gated (the
+    packed cells, ``proc``, count, cap, the rewind snapshot, ``rs.alive``),
+    rasterized by the plain version, rewound (every DDA field, ``alive``,
+    the rewind count).  Returns the inputs and counts ``time_gate`` reads."""
+    from cpuvox_tpu_torch.bench.capture import clone
+    from cpuvox_tpu_torch.ops import gate_kernel, phase1_kernel, roll_kernel
+    from cpuvox_tpu_torch.render.raymarch import PackedCells
+
+    dev = cap.alive.device
+    dda, alive, visits = roll_kernel.roll_chunk_ref(
+        clone(cap.dda), cap.alive.clone(), cap.frame.static.dirs,
+        cap.lod_distances, cap.far, dims, cap.chunk, index=cap.index)
+    gk = cap.src.rows.shape[0]
+    outs = []
+    for fn in (gate_kernel.gate, gate_kernel.gate_ref):
+        rs = clone(cap.rs)
+        counters = torch.zeros(3, dtype=torch.int64, device=dev)
+        g = fn(cap.wa, visits, rs, cap.consts, gk, counters, index=cap.index)
+        outs.append(([*g.cells, g.count, g.cap, g.snap, rs.alive], counters))
+    compare("gate", outs[0][0], outs[1][0], stats)
+    launched, overflow, rewinds = outs[0][1].tolist()
+    if launched != 1 or rewinds:
+        raise AssertionError(f"the gate kernel's counters {outs[0][1]}")
+    rows, proc, count, cap_, snap, _alive = outs[1][0]
+    g = gate_kernel.Gate(PackedCells(rows, proc), count, cap_, snap)
+    rs = phase1_kernel.rasterize_visits_ref(
+        clone(cap.rs), cap.wa, g.cells, cap.frame.static, cap.consts,
+        cap.frame.iteration_direction, index=cap.index)
+    outs = []
+    for fn in (gate_kernel.rewind, gate_kernel.rewind_ref):
+        d, a = clone(dda), alive.clone()
+        rewound = torch.zeros((), dtype=torch.int64, device=dev)
+        counters = torch.zeros(3, dtype=torch.int64, device=dev)
+        fn(d, a, rewound, counters, rs, g, index=cap.index)
+        outs.append([*d, a, rewound])
+        if counters.tolist() != [0, 0, int(fn is gate_kernel.rewind)]:
+            raise AssertionError(f"{fn.__name__}: counters "
+                                 f"{counters.tolist()}")
+    compare("gate_rewind", outs[0], outs[1], stats)
+    return {"visits": visits, "dda": dda, "alive": alive, "rs": rs, "g": g,
+            "overflow": overflow, "rewound": int(outs[0][-1])}
+
+
+def gated_counts(tag: str) -> dict:
+    """The gated march's counts since their last reset
+    (``raymarch.gated_stats``, summed on the device): the gate kernel's and
+    the rewind kernel's launches, each counted by the kernel itself, must
+    equal the gated iterations."""
+    from cpuvox_tpu_torch.render import raymarch
+
+    c = dict(raymarch.gated_stats)
+    if not c["gate_launches"] == c["rewind_launches"] == c["iterations"]:
+        raise AssertionError(f"{tag}: {c['gate_launches']} gate and "
+                             f"{c['rewind_launches']} rewind kernel launches "
+                             f"in {c['iterations']} gated iterations")
+    return c
 
 
 def capture_compacted(renderer, cam, k: int):
@@ -798,8 +870,8 @@ def check_small_frame(renderer, scene: str, variants, stats: dict):
 
 
 def check_gated_kernels(renderer, stats: dict):
-    """Phase 4b: the roll at chunk 128 and the rasterizer on a gated group,
-    mid-march, in both iteration directions."""
+    """Phase 6b: the roll at chunk 128, the gate, the rasterizer on a gated
+    group and the rewind, mid-march, in both iteration directions."""
     from cpuvox_tpu_torch.bench.capture import capture
 
     dims = renderer.device_world.dims
@@ -820,6 +892,7 @@ def check_gated_kernels(renderer, stats: dict):
             raise AssertionError(f"direction {d:+d}: the captured group holds "
                                  "no gated cell")
         _want, written = raster_both(cap, stats)
+        gated = gate_both(cap, dims, stats)
         GK, _rk, maxr = cap.cells.runs.shape
         log(f"[layered] direction {d:+d} (path t={t}), on {rays_of(cap)}: "
             f"roll_chunk == plain at C={cap.chunk} ({int(cap.alive.sum())} "
@@ -827,9 +900,12 @@ def check_gated_kernels(renderer, stats: dict):
             f"on a gated group "
             f"(GK={GK}, MAXR={maxr}, {int(cap.cells.valid.sum())} gated "
             f"cells, {written} texels written): raybuffer + 8 state fields, "
-            f"0 elements differ")
+            f"0 elements differ; gate == plain (packed cells, proc, count, "
+            f"cap, snapshot, rs.alive; {gated['overflow']} steps past the "
+            f"tile budget) and gate_rewind == plain (DDA state, alive, "
+            f"{gated['rewound']} rays rewound), 0 elements differ")
         if compact:
-            caps[d] = (cap, written)
+            caps[d] = (cap, written, gated)
     if set(caps) != {1, -1}:
         raise AssertionError(f"iteration directions seen: {sorted(caps)}")
     return caps
@@ -849,7 +925,7 @@ def flythrough(renderer, scene: str, card: str, gated: bool):
     from cpuvox_tpu_torch.render import raymarch, reproject
 
     march_loop.reset_launches()
-    raymarch.gated_stats.update(iterations=0, rewinds=0)
+    raymarch.gated_stats.reset()
     raymarch.compact_stats.update(rebuilds=0, chunks=0, ray_slots=0)
     watched = ((raymarch, "_fetch_columns"), (reproject, "segment_ray_index"))
     originals = [getattr(m, name) for m, name in watched]
@@ -870,7 +946,7 @@ def flythrough(renderer, scene: str, card: str, gated: bool):
             setattr(m, name, fn)
     counts = march_loop.kernel_launches()
     launches = [counts[k[0]] for k in KERNELS]
-    gstats = dict(raymarch.gated_stats)
+    gstats = gated_counts(scene)
     cstats = dict(raymarch.compact_stats)
     # the harness's two warmup frames count too, and its pipelined pass
     frames = 2 * N_FRAMES + 2
@@ -899,7 +975,11 @@ def flythrough(renderer, scene: str, card: str, gated: bool):
     if gated and gstats["rewinds"] <= 0:
         raise AssertionError(f"{scene}: the gated march rewound no ray")
     extra = (f"; {gstats['iterations'] / frames:.1f} gated iterations and "
-             f"{gstats['rewinds'] / frames:.0f} rays rewound per frame"
+             f"{gstats['rewinds'] / frames:.0f} rays rewound per frame; "
+             f"launches counted by the kernels on the device: gate "
+             f"{gstats['gate_launches']}, rewind {gstats['rewind_launches']} "
+             f"(gated iterations {gstats['iterations']}), "
+             f"{gstats['overflow_steps']} steps past the gate's tile budget"
              if gated else "")
     extra += (f"; staged graph, iterations by stage width "
               f"{st['by_width']} ({st['iterations'] / frames:.1f} a frame), "
@@ -916,7 +996,8 @@ def flythrough(renderer, scene: str, card: str, gated: bool):
         f"(0 of the previous sample), loop control {counts['march_loop']} "
         f"(a check a stage a frame and one an iteration){extra}")
     return ({**dict(zip([k[0] for k in KERNELS], launches)),
-             "march_loop": counts["march_loop"]}, metrics, st)
+             "march_loop": counts["march_loop"],
+             "gated": gstats}, metrics, st)
 
 
 def check_lods_past_8(renderer, stats: dict) -> None:
@@ -1126,9 +1207,10 @@ def check_loop(renderer, tag: str, card: str, stats: dict, loop: dict):
 
     # (d) the flythrough, sequential and pipelined, counted
     march_loop.reset_launches()
-    raymarch.gated_stats.update(iterations=0, rewinds=0)
+    raymarch.gated_stats.reset()
     m = run_flythrough(r, n_frames=N_FRAMES, log=log, keep_screens=True)
     counts = march_loop.kernel_launches()
+    gated = gated_counts(f"[loop] {tag}")
     launches, iters = march_loop.graph_stats["launches"], \
         march_loop.graph_stats["iterations"]
     frames = 2 * N_FRAMES + 2
@@ -1192,7 +1274,8 @@ def check_loop(renderer, tag: str, card: str, stats: dict, loop: dict):
     wall_ms = N_FRAMES / m["fps_pipe"] * 1e3
     caps = r._graph.captures
     loop[tag] = {"launches": counts, "graph_launches": launches,
-                 "iterations": iters, "fps_seq": m["fps_seq"],
+                 "iterations": iters, "gated": gated,
+                 "fps_seq": m["fps_seq"],
                  "fps_pipe": m["fps_pipe"], "frame_ms_p50": m["frame_ms_p50"],
                  "frame_ms_p50_pipe": m["frame_ms_p50_pipe"],
                  "frame_gpu_ms_p50": m["frame_gpu_ms_p50"],
@@ -1208,7 +1291,7 @@ def check_loop(renderer, tag: str, card: str, stats: dict, loop: dict):
         f"iterations ({iters / frames:.1f} a frame): roll "
         f"{counts['roll_chunk']}, rasterize {counts['rasterize_visits']}, "
         f"march_loop {counts['march_loop']}, phase 2 "
-        f"{counts['reproject_screen']} ({card})")
+        f"{counts['reproject_screen']}; gated march counts {gated} ({card})")
     log(f"[loop] {tag} (e) fps {m['fps_seq']:.3f} sequential, "
         f"{m['fps_pipe']:.3f} pipelined; frame p50 {m['frame_ms_p50']:.3f} "
         f"ms sequential (device span p50 {m['frame_gpu_ms_p50']:.3f} ms), "
@@ -1324,6 +1407,7 @@ def check_loop_staged(renderer, tag: str, card: str, stats: dict,
     caps0 = len(r._graph.captures)
     runs: dict = {False: [], True: []}
     reserved = []
+    raymarch.gated_stats.reset()
     for compact in (False, True, True, False):
         m = run_flythrough(r if compact else u, n_frames=N_FRAMES, log=log)
         torch.cuda.synchronize()
@@ -1332,6 +1416,7 @@ def check_loop_staged(renderer, tag: str, card: str, stats: dict,
             raise AssertionError(f"[loop] {tag}: {m['magenta_pixels']} "
                                  "magenta pixels in a timed run")
         runs[compact].append(m)
+    gated = gated_counts(f"[loop] {tag} staged")
     if len(r._graph.captures) != caps0 or len(set(reserved)) != 1:
         raise AssertionError(f"[loop] {tag}: over the timed runs captures "
                              f"{caps0} -> {len(r._graph.captures)}, "
@@ -1345,7 +1430,7 @@ def check_loop_staged(renderer, tag: str, card: str, stats: dict,
            "pipe_ms": {c: p50(c, "frame_ms_p50_pipe") for c in runs},
            "fps_seq": {c: p50(c, "fps_seq") for c in runs},
            "fps_pipe": {c: p50(c, "fps_pipe") for c in runs},
-           "memory_reserved": reserved[0],
+           "memory_reserved": reserved[0], "gated": gated,
            "captures": [c for c in r._graph.captures
                         if len(c["widths"]) > 1]}
     loop[tag]["staged"] = out
@@ -1358,8 +1443,8 @@ def check_loop_staged(renderer, tag: str, card: str, stats: dict,
         f"{N_FRAMES} frames a pass, runs in turns (uncompacted, staged, "
         f"staged, uncompacted): frame p50 sequential ms {txt('seq_ms')}; "
         f"pipelined ms {txt('pipe_ms')}; 0 magenta; captures {caps0} and "
-        f"memory_reserved {reserved[0]} bytes unchanged over the runs "
-        f"({card})")
+        f"memory_reserved {reserved[0]} bytes unchanged over the runs; "
+        f"gated march counts {gated} ({card})")
     for c in out["captures"]:
         log(f"[loop] {tag} staged (d) capture, direction {c['direction']}, "
             f"{'gated' if c['gated'] else 'dense'}: warm {c['warm_ms']:.3f} "
@@ -2317,13 +2402,20 @@ SHARD_ROLLOUT_STEPS = 4
 
 
 def shard_counts_run(tally: dict, fn):
-    """``fn()`` with the kernels' launch counts set to 0 just before it and
-    added to ``tally`` just after it."""
+    """``fn()`` with the kernels' launch counts and the gated march's counts
+    set to 0 just before it and added to ``tally`` just after it (the gate
+    and rewind kernels' launches, each equal to the gated iterations)."""
     from cpuvox_tpu_torch.ops import march_loop
+    from cpuvox_tpu_torch.render import raymarch
 
     march_loop.reset_launches()
+    raymarch.gated_stats.reset()
     out = fn()
-    for k, v in march_loop.kernel_launches().items():
+    gated = gated_counts("[shard]")
+    for k, v in (*march_loop.kernel_launches().items(),
+                 ("gate", gated["gate_launches"]),
+                 ("gate_rewind", gated["rewind_launches"]),
+                 ("gated_iterations", gated["iterations"])):
         tally[k] = tally.get(k, 0) + v
     return out
 
@@ -3325,6 +3417,90 @@ def time_kernels(caps: dict) -> dict:
     return out
 
 
+def gate_work(cap, gated: dict):
+    """Bytes and operations one gate launch needs on this data: the valid
+    flag of every step and the other five visit fields of each valid step;
+    one 32-byte occupancy row per distinct tile the valid steps within the
+    tile budget read; the snapshot (7 words) of each ray with more gated
+    cells than its group; a ray's window, narrowing flag and liveness (and
+    its index slot); written: the packed group (16 + 1 B a slot), count, cap
+    and the snapshot.  About 60 operations a valid step."""
+    from cpuvox_tpu_torch.render import raymarch
+
+    visits, g = gated["visits"], gated["g"]
+    C, _f, Rk = visits.shape
+    GK = g.cells.rows.shape[0]
+    valid = visits[:, 5] != 0
+    lod = visits[:, 4]
+    lodc = lod.clamp(0, 7)
+    ti = raymarch._occ_tile_index(cap.wa, lodc, lod, visits[:, 0] >> lod,
+                                  visits[:, 1] >> lod)
+    new = torch.ones_like(valid)
+    new[1:] = ti[1:] != ti[:-1]
+    slot = torch.cumsum(new.to(torch.int32), 0) - 1
+    rows = ti.clamp(0, cap.wa.occ_tiles.shape[0] - 1)[valid & (slot < C // 8
+                                                                + 4)]
+    n_valid = int(valid.sum())
+    per_ray = 11 + (0 if cap.index is None else 4)
+    nbytes = (4 * C * Rk + 20 * n_valid + 32 * torch.unique(rows).numel()
+              + 28 * int((g.count > GK).sum()) + per_ray * Rk
+              + 17 * GK * Rk + 36 * Rk)
+    return nbytes, 60 * n_valid
+
+
+def rewind_work(cap, gated: dict):
+    """Bytes and operations one rewind launch needs: a slot's count, cap and
+    the ray's liveness (and index slot); a rewound ray's snapshot, its LOD,
+    tdelta and stp read and its DDA state and liveness written; about 20
+    operations a slot."""
+    Rk = gated["g"].count.shape[0]
+    per_ray = 9 + (0 if cap.index is None else 4)
+    return per_ray * Rk + 93 * gated["rewound"] + 8, 20 * Rk
+
+
+def time_gate(cap, gated: dict) -> dict:
+    """The gate and rewind kernels' times at the capture's shapes (as
+    ``time_kernels`` times the others: per call, the device's own time a
+    launch, the plain version, the bound)."""
+    from cpuvox_tpu_torch.bench.capture import clone
+    from cpuvox_tpu_torch.ops import gate_kernel
+
+    visits, g = gated["visits"], gated["g"]
+    GK = g.cells.rows.shape[0]
+    counters = torch.zeros(3, dtype=torch.int64, device=visits.device)
+
+    def gate(fn):
+        return lambda rs: fn(cap.wa, visits, rs, cap.consts, GK, counters,
+                             index=cap.index)
+
+    def rewind(fn):
+        return lambda a: fn(*a, gated["rs"], g, index=cap.index)
+
+    def rewind_setup():
+        return (clone(gated["dda"]), gated["alive"].clone(),
+                torch.zeros((), dtype=torch.int64, device=visits.device),
+                counters)
+
+    out = {}
+    for name, kern, plain, setup, work in (
+            ("gate", gate(gate_kernel.gate), gate(gate_kernel.gate_ref),
+             lambda: clone(cap.rs), gate_work(cap, gated)),
+            ("gate_rewind", rewind(gate_kernel.rewind),
+             rewind(gate_kernel.rewind_ref), rewind_setup,
+             rewind_work(cap, gated))):
+        time_ms(kern, 2, setup)  # warm
+        b_ms, b_by = bound(*work)
+        out[name] = {"ms": time_ms(kern, 20, setup),
+                     "device_ms": device_ms(kern, setup, 20),
+                     "plain_ms": time_ms(plain, 5, setup),
+                     "rays": rays_worked(cap), "bound_ms": b_ms,
+                     "bound_by": b_by, "bytes": int(work[0]),
+                     "operations": int(work[1]), "library_ms": None,
+                     "overflow_steps": gated["overflow"],
+                     "rewound": gated["rewound"]}
+    return out
+
+
 def resource_usage(lib: str) -> None:
     """Registers, stack and local memory (spills) of each kernel in the
     built library, as ``cuobjdump -res-usage`` reads them."""
@@ -3628,8 +3804,9 @@ def main() -> int:
     p2args = check_phase2(layered, f, layered.march(f), stats)
     log(f"[layered] reproject_screen == plain on a 1080p frame: 0 pixels "
         "differ")
+    g_times = time_gate(busiest[0], busiest[2])
     l_times = time_kernels({
-        "roll": busiest[0], "raster": busiest,
+        "roll": busiest[0], "raster": busiest[:2],
         "phase2": (p2args, sample_maps(layered, f.tables)),
         "roll_previous": prev_roll["previous design"],
         "dims": dw.dims, "plain_reps": 1})
@@ -3731,6 +3908,43 @@ def main() -> int:
                for p in LOOP_PATHS},
             "rollout64_256x256": rollout["launches"]["march_loop"],
             "shard": shard["march_loop"]}})
+    # the gated march's counts by path, each read from the device after the
+    # path's counted runs (``gated_counts``; ``shard`` sums its runs')
+    gated_by_path = {
+        "layered2048": l_launches["gated"],
+        **{f"loop {p}": loop[p]["gated"] for p in LOOP_PATHS},
+        **{f"loop {p} staged": loop[p]["staged"]["gated"]
+           for p in LOOP_PATHS},
+        "shard": {"gate_launches": shard["gate"],
+                  "rewind_launches": shard["gate_rewind"],
+                  "iterations": shard["gated_iterations"]}}
+    for (kname, replaces), t, key in zip(
+            GATE_KERNELS, (g_times["gate"], g_times["gate_rewind"]),
+            ("gate_launches", "rewind_launches")):
+        by_path = {p: c[key] for p, c in gated_by_path.items()}
+        its = {p: c["iterations"] for p, c in gated_by_path.items()}
+        log(f"[time] {kname} at layered2048's shapes ({t['rays']} rays): "
+            f"kernel {t['ms']:.4f} ms a call, {t['device_ms']:.4f} ms on the "
+            f"device a launch, plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} B, "
+            f"{t['operations']} ops); {stats[kname]['mismatches']} "
+            f"mismatches against the plain version, tolerance 0; launches "
+            f"counted by the kernel on the device, by path, {by_path} (gated "
+            f"iterations {its}) ({card})")
+        row = {
+            "name": kname, "route": "cuda", "source": GATE_SOURCE,
+            "replaces": replaces, "launches": by_path["layered2048"],
+            "max_abs_err": stats[kname]["max_abs_err"],
+            "ms": t["ms"], "device_ms": t["device_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "launches_by_path": by_path,
+            "gated_iterations_by_path": its}
+        if kname == "gate":
+            row["overflow_steps_by_path"] = {
+                p: c["overflow_steps"] for p, c in gated_by_path.items()
+                if "overflow_steps" in c}
+        kernels.append(row)
     for p in LOOP_PATHS:
         v = loop[p]
         log(f"[summary] [loop] {p}: fps {v['fps_seq']:.3f} sequential, "

@@ -61,8 +61,10 @@ def capture(renderer, cam, k: int, compact: bool = True) -> Capture:
                               *renderer.solid_bounds, device=dev)
     ld = torch.from_numpy(f.cam_data.lod_distances).to(dev)
     far = float(np.float32(f.cam_data.far_clip))
-    roll, raster = rm.march_ops(True)
+    roll, raster, gate, rewind = rm.march_ops(True)
     dda, alive = clone(f.dda), f.alive0
+    rewound = torch.zeros((), dtype=torch.int64, device=dev)
+    counts = torch.zeros(3, dtype=torch.int64, device=dev)
     index = None
     for i in range(k + 1):
         alive = alive & rs.alive
@@ -75,15 +77,14 @@ def capture(renderer, cam, k: int, compact: bool = True) -> Capture:
                                   chunk, index=index)
         src = visits
         if gk:
-            rs, g = rm.gated_group(renderer._wa, visits, rs, consts, gk,
-                                   index=index)
+            g = gate(renderer._wa, visits, rs, consts, gk, counts,
+                     index=index)
             src = g.cells
         if i < k:
             rs = raster(rs, renderer._wa, src, f.static, consts,
                         f.iteration_direction, index=index)
             if gk:
-                dda, needs = rm.rewind(dda, visits, rs, g, index=index)
-                alive = rm._or_rows(alive, index, needs)
+                rewind(dda, alive, rewound, counts, rs, g, index=index)
     cells = rm.fetch_cells(renderer._wa, src, f.iteration_direction)
     return Capture(f, rs, consts, ld, far, before[0], before[1], src, cells,
                    renderer._wa, chunk, bool(gk), index)

@@ -27,7 +27,8 @@ compacted one).  For each variant it captures with
 ``torch.cuda.CUDAGraph(keep_graph=True)``, after one eager warm iteration a
 stage on dead rays:
 
-- the prologue: the raster state reset from the rays, the rewind count 0;
+- the prologue: the raster state reset from the rays, the rewind and
+  gate counts 0;
 - a body a stage: one iteration without its control (``raymarch.
   march_body`` or ``gated_body``) on the stage's index buffer (none at the
   full width) with the next state written back into the buffers
@@ -52,8 +53,8 @@ are dead by its end.
 A frame copies its rays into the buffers (device-to-device, no host read),
 fills the camera height (a camera batch copies a height a ray, and its
 quotient by the world's height, both made with its rays), launches the
-graph, adds the iteration, stage and rewind counts to the stats on the
-device, and fills the skybox into a new tensor, so the raybuffer it
+graph, adds the iteration, stage, rewind and gate counts to the stats on
+the device, and fills the skybox into a new tensor, so the raybuffer it
 returns does not alias the buffers that the next frame overwrites.  Phase
 2 follows as an eager launch on the same stream.  ``march`` runs on the
 current stream, and the counts go into that stream's accumulators
@@ -211,6 +212,7 @@ class MarchGraph:
     def prologue(self) -> None:
         rm.reset_raster_state(self.state.rs, self.static)
         self.state.rewound.zero_()
+        self.state.gate_counts.zero_()
 
     def index(self, width: int):
         """The live-ray index buffer of a stage ``width`` rays wide (int32
@@ -416,5 +418,5 @@ class MarchGraph:
                     self.pack(v.widths[k + 1])
         march_loop.stage_stats.add(v.widths, v.exits)
         if a.group_cells:
-            rm.gated_stats.add(iterations=s.i, rewinds=s.rewound)
+            rm.add_gated_stats(s, s.i)
         return rm.fill_skybox(a.wa, self.static, s.rs.raybuf)

@@ -60,11 +60,13 @@ import numpy as np
 import torch
 
 from cpuvox_tpu_torch.render import device as world_device
+from cpuvox_tpu_torch.utils import profiling
 
 BIG = 1 << 24
 I32_MIN = -(1 << 31)
 I32_MAX = (1 << 31) - 1
 NVF = 13  # visit fields per DDA step (order in ops/roll_kernel.py)
+GATE_EPS = np.float32(1e-5)  # the occupancy gate's relative window margin
 MAGENTA_I32 = int(np.uint32(0xFFFF1493).view(np.int32))  # unwritten texels
 
 
@@ -789,7 +791,7 @@ def raster_consts(world_max_y, cam_y, solid_min_y=None, solid_max_y=None,
     return {
         "world_max_y": t(wmy), "cam_y": t(cy), "cam_y_norm": t(cy_norm),
         "solid_min_y": t(smin), "solid_max_y": t(smax),
-        "gate_eps": t(np.float32(1e-5)),  # the gate's relative margin
+        "gate_eps": t(GATE_EPS),
         "scalars": tuple(None if x is None else float(x)
                          for x in (wmy, 0.0 if per_ray else cy,
                                    0.0 if per_ray else cy_norm, smin, smax)),
@@ -876,16 +878,20 @@ def fetch_cells(wa: WorldArrays, cells, iteration_direction: int) -> CellFields:
 
 
 def march_ops(kernels: bool):
-    """(roll, raster): the ops wrappers (the CUDA kernels on a CUDA tensor),
-    or with ``kernels`` False their plain torch versions.  ``raster`` takes
-    (rs, wa, cells, static, consts, direction, index) with ``cells`` the
-    roll's visits or a ``PackedCells`` group, and reads the column records
-    itself."""
-    from cpuvox_tpu_torch.ops import phase1_kernel, roll_kernel
+    """(roll, raster, gate, rewind): the ops wrappers (the CUDA kernels on a
+    CUDA tensor), or with ``kernels`` False their plain torch versions.
+    ``raster`` takes (rs, wa, cells, static, consts, direction, index) with
+    ``cells`` the roll's visits or a ``PackedCells`` group, and reads the
+    column records itself.  ``gate`` and ``rewind`` are the gated march's
+    glue (``ops/gate_kernel.py``: ``gated_group`` and ``rewind_apply`` with
+    the kernels' in-place contract)."""
+    from cpuvox_tpu_torch.ops import gate_kernel, phase1_kernel, roll_kernel
 
     if kernels:
-        return roll_kernel.roll_chunk, phase1_kernel.rasterize_visits
-    return roll_kernel.roll_chunk_ref, phase1_kernel.rasterize_visits_ref
+        return (roll_kernel.roll_chunk, phase1_kernel.rasterize_visits,
+                gate_kernel.gate, gate_kernel.rewind)
+    return (roll_kernel.roll_chunk_ref, phase1_kernel.rasterize_visits_ref,
+            gate_kernel.gate_ref, gate_kernel.rewind_ref)
 
 
 def current_stream(device: torch.device):
@@ -956,6 +962,10 @@ class MarchStats:
 
     def keys(self):
         return self._host.keys()
+
+    def reset(self) -> None:
+        """Every count to 0."""
+        self.update(**dict.fromkeys(self._host, 0))
 
 
 # live-ray compaction in the host loop since the last reset: index rebuilds,
@@ -1053,6 +1063,10 @@ class MarchState(NamedTuple):
     rs: RasterState
     i: torch.Tensor  # () int32: iterations run
     rewound: torch.Tensor  # () int64: rays rewound (the gated march)
+    # (3,) int64: the gate kernel's launches, its steps past the tile budget
+    # and the rewind kernel's launches (``ops/gate_kernel.py``; the plain
+    # versions count nothing)
+    gate_counts: torch.Tensor
 
 
 def march_state(dda: DDAState, alive0, rs: RasterState) -> MarchState:
@@ -1060,12 +1074,13 @@ def march_state(dda: DDAState, alive0, rs: RasterState) -> MarchState:
     dev = alive0.device
     return MarchState(dda, alive0 & rs.alive, rs,
                       torch.zeros((), dtype=torch.int32, device=dev),
-                      torch.zeros((), dtype=torch.int64, device=dev))
+                      torch.zeros((), dtype=torch.int64, device=dev),
+                      torch.zeros(3, dtype=torch.int64, device=dev))
 
 
 def state_tensors(s: MarchState) -> list:
     """The state's tensors in a fixed order."""
-    return [*s.dda, s.alive, *s.rs, s.i, s.rewound]
+    return [*s.dda, s.alive, *s.rs, s.i, s.rewound, s.gate_counts]
 
 
 def write_state(dst: MarchState, src: MarchState) -> None:
@@ -1099,7 +1114,7 @@ def march_body(a: MarchArgs, s: MarchState, index=None) -> MarchState:
     """One dense iteration without its control: roll the live rays (all of
     them, or those of a live-ray ``index``), then fetch and rasterize their
     visited cells (one op, which reads the column records itself)."""
-    roll, raster = march_ops(a.kernels)
+    roll, raster, _gate, _rewind = march_ops(a.kernels)
     dda, alive, visits = roll(s.dda, s.alive, a.static.dirs, a.lod_distances,
                               a.far_clip, a.dims, a.chunk, index=index)
     rs = raster(s.rs, a.wa, visits, a.static, a.consts, a.iteration_direction,
@@ -1108,20 +1123,20 @@ def march_body(a: MarchArgs, s: MarchState, index=None) -> MarchState:
 
 
 def gated_body(a: MarchArgs, s: MarchState, index=None) -> MarchState:
-    """One gated iteration without its control: roll ``chunk`` steps,
-    rasterize the first ``group_cells`` gated cells of each ray
-    (``gated_group``), rewind the rays that had more (``rewind``) and count
-    them."""
-    roll, raster = march_ops(a.kernels)
+    """One gated iteration without its control: roll ``chunk`` steps, gate
+    and pack the first ``group_cells`` gated cells of each ray
+    (``gated_group``, the pre-kill in place), rasterize them, then rewind
+    the rays that had more (``rewind_apply``) and count them, in place
+    (``march_ops``' gate and rewind)."""
+    roll, raster, gate, rewind = march_ops(a.kernels)
     dda, alive, visits = roll(s.dda, s.alive, a.static.dirs, a.lod_distances,
                               a.far_clip, a.dims, a.chunk, index=index)
-    rs, g = gated_group(a.wa, visits, s.rs, a.consts, a.group_cells,
-                        index=index)
-    rs = raster(rs, a.wa, g.cells, a.static, a.consts, a.iteration_direction,
-                index=index)
-    dda, needs = rewind(dda, visits, rs, g, index=index)
-    return MarchState(dda, _or_rows(alive, index, needs), rs, s.i,
-                      s.rewound + needs.sum())
+    g = gate(a.wa, visits, s.rs, a.consts, a.group_cells, s.gate_counts,
+             index=index)
+    rs = raster(s.rs, a.wa, g.cells, a.static, a.consts,
+                a.iteration_direction, index=index)
+    rewind(dda, alive, s.rewound, s.gate_counts, rs, g, index=index)
+    return s._replace(dda=dda, alive=alive, rs=rs)
 
 
 def _advanced(s: MarchState) -> MarchState:
@@ -1171,9 +1186,21 @@ def march(wa: WorldArrays, static: RayStatic, dda: DDAState, alive0,
     return march_on_host(a, march_state(dda, alive0, rs), compact)[0].rs
 
 
-# gated iterations run and rays rewound by the gated march since the last
-# reset, on the host loop and in march graphs
-gated_stats = MarchStats(iterations=0, rewinds=0)
+# gated iterations run, rays rewound, the gate kernel's launches and steps
+# past its tile budget, and the rewind kernel's launches, by the gated march
+# since the last reset, on the host loop and in march graphs
+gated_stats = MarchStats(iterations=0, rewinds=0, gate_launches=0,
+                         overflow_steps=0, rewind_launches=0)
+profiling.register_counts("gated", gated_stats)
+
+
+def add_gated_stats(s: MarchState, iterations) -> None:
+    """A gated march's ``iterations`` (an int, or the state's device
+    counter) and the state's counts into ``gated_stats``, without a read."""
+    gated_stats.add(iterations=iterations, rewinds=s.rewound,
+                    gate_launches=s.gate_counts[0],
+                    overflow_steps=s.gate_counts[1],
+                    rewind_launches=s.gate_counts[2])
 
 
 def _pack_rank(mask, K: int):
@@ -1300,33 +1327,52 @@ def gated_group(wa: WorldArrays, visits, rs: RasterState, consts,
     return rs, GatedGroup(cells, gate, rank, count, cap)
 
 
-def rewind(dda: DDAState, visits, rs: RasterState, g: GatedGroup, index=None):
-    """The busy-ray rewind (``raymarch.py:1547-1579``): a live ray with more
-    gated cells than its group held gets the pre-switch snapshot of its first
-    unprocessed gated cell, so the next iteration re-rolls from exactly there
-    (same DDA state, same float trajectory).  Returns (dda, rewound), the
-    rewound mask over the group's rays: (R,), or (Rk,) with a live-ray
-    ``index``."""
+# the pre-switch snapshot's words a ray (``rewind_snapshot``)
+SNAP_WORDS = 7
+
+
+def rewind_snapshot(visits, g: GatedGroup):
+    """The rewind's anchor (``raymarch.py:1547-1560``): for each ray the
+    pre-switch snapshot of its first unprocessed gated cell, the step where
+    ``gate & rank == cap``, as (7, R) int32 [pos x, pos z, tmax x, tmax z,
+    ids0, ids1 (f32 bits), lod]; a masked sum over the steps, 0 where there
+    is no such step.  The sums are exact (one nonzero summand per busy ray,
+    as the reference sums them), except that an f32 word is rounded by the
+    sum's adds (-0.0 reads +0.0)."""
+    rwm = g.gate & (g.rank == g.cap)
+
+    def rsum(f):
+        return torch.where(rwm, f, torch.zeros_like(f)).sum(0, dtype=f.dtype)
+
+    pre = visits[:, 6:13]
+    f32 = [rsum(pre[:, k].view(torch.float32)).view(torch.int32)
+           for k in range(2, 6)]
+    return torch.stack([rsum(pre[:, 0]), rsum(pre[:, 1]), *f32,
+                        rsum(pre[:, 6])])
+
+
+def rewind_apply(dda: DDAState, snap, count, cap, rs: RasterState,
+                 index=None):
+    """The busy-ray rewind (``raymarch.py:1562-1579``): a live ray with
+    more gated cells than its group held (``count > cap``) gets its
+    ``snap`` (``rewind_snapshot``), so the next iteration re-rolls from
+    exactly there (same DDA state, same float trajectory).  Returns (dda,
+    rewound), the rewound mask over the group's rays: (R,), or (Rk,) with a
+    live-ray ``index``."""
     full = dda
     if index is not None:
         index = index.long()
         dda = DDAState(*(_take(f, index) for f in dda))
-    rwm = g.gate & (g.rank == g.cap)
-    needs = (g.count > g.cap) & _take(rs.alive, index)
-
-    def rsum(f):  # exact: one nonzero summand per busy ray, as the reference
-        return torch.where(rwm, f, torch.zeros_like(f)).sum(0, dtype=f.dtype)
-
-    pre = visits[:, 6:13]
-    lod_rw = rsum(pre[:, 6])
-    f32 = [rsum(pre[:, k].view(torch.float32)) for k in range(2, 6)]
+    needs = (count > cap) & _take(rs.alive, index)
+    lod_rw = snap[6]
+    f32 = snap[2:6].view(torch.float32)
     dda_rw = DDAState(
-        pos=torch.stack([rsum(pre[:, 0]), rsum(pre[:, 1])], 1),
-        tmax=torch.stack(f32[0:2], 1),
+        pos=torch.stack([snap[0], snap[1]], 1),
+        tmax=torch.stack([f32[0], f32[1]], 1),
         # tdelta and stp scale by exact powers of two per LOD
         tdelta=torch.ldexp(dda.tdelta, (lod_rw - dda.lod)[:, None]),
         stp=torch.sign(dda.stp) * (1 << lod_rw)[:, None],
-        ids=torch.stack(f32[2:4], 1), lod=lod_rw)
+        ids=torch.stack([f32[2], f32[3]], 1), lod=lod_rw)
     dda = _select(needs, dda_rw, dda)
     return DDAState(*(_put(f, index, x) for f, x in zip(full, dda))), needs
 
@@ -1340,8 +1386,8 @@ def march_gated(wa: WorldArrays, static: RayStatic, dda: DDAState, alive0,
     ``occupancy=True``, one drain group, no block fetch, no lite records):
     per iteration roll ``chunk`` steps, rasterize the first ``group_cells``
     gated cells of each ray (``gated_group``) and rewind the rays that had
-    more (``rewind``), until every ray is dead or ``max_chunks`` iterations
-    ran.  Every iteration advances a ray by at least one rasterized cell or
+    more (``rewind_apply``), until every ray is dead or ``max_chunks``
+    iterations ran.  Every iteration advances a ray by at least one rasterized cell or
     ``chunk`` steps, so a budget of 3 * max_dim + 64 never truncates one
     (``Renderer.march_params``).  Its raybuffer equals ``march``'s.
 
@@ -1354,7 +1400,7 @@ def march_gated(wa: WorldArrays, static: RayStatic, dda: DDAState, alive0,
                   iteration_direction, chunk, max_chunks, group_cells,
                   kernels)
     s, i = march_on_host(a, march_state(dda, alive0, rs), compact)
-    gated_stats.add(iterations=i, rewinds=s.rewound)
+    add_gated_stats(s, i)
     return s.rs
 
 

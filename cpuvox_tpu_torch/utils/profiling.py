@@ -25,14 +25,16 @@ on and cheap:
   from the first control kernel's start to the last one's end, splits
   into four (``device_split``): ``roll`` and ``rasterizer``, their
   launches' spans; ``gate_glue``, the gaps after a roll or a rasterizer
-  launch (the tile gather, window gate, pack and rewind of the gated
-  march, the state copies, the node latencies); ``march_control``, the
+  launch (the gated march's gate and rewind kernels, ``ops/gate_kernel``,
+  and the node latencies); ``march_control``, the
   control kernel's launches and the gaps after them (the WHILE node's
   turn to the next iteration, the packs between stages).  The counters
   are the live rays before each iteration and the slots the iteration
   marched.
 
-``summary(n)`` gives the means a frame over the last ``n`` frames;
+``summary(n)`` gives the means a frame over the last ``n`` frames, and
+the counts that higher layers register (``register_counts``; the gated
+march's, ``raymarch.gated_stats``) as they stand;
 ``export_chrome_trace`` writes frames, process spans and the sampled
 device spans, put on the host's clock, as one Chrome trace.  Setting the
 module's ``ENABLED`` to False records nothing from the next frame on.
@@ -73,6 +75,17 @@ GAP = LAUNCHES + len(KERNELS)
 LIVE = GAP + len(KERNELS) ** 2
 SLOTS = LIVE + 1
 TIMER_WORDS = SLOTS + 1
+
+
+# name -> counts (a ``raymarch.MarchStats``: ``dict(stats)`` reads them) that
+# ``Recorder.summary`` reports
+COUNTS: dict = {}
+
+
+def register_counts(name: str, stats) -> None:
+    """Report ``stats`` (``dict(stats)`` gives its counts) under ``name`` in
+    every ``Recorder.summary``."""
+    COUNTS[name] = stats
 
 
 def timer_init(device) -> torch.Tensor:
@@ -217,7 +230,12 @@ class Recorder:
         and the whole ``frame``, over every frame), and over the sampled
         frames ``device_ms`` (``device_split``), ``gaps_ms`` (by kernel
         pair, "roll>rasterizer"), ``launches`` (by kernel) and the
-        counters ``live_rays`` and ``slots``."""
+        counters ``live_rays`` and ``slots``; and under its name each set
+        of ``register_counts``, as it stands: its counts run since their
+        own last reset, not over the last ``last_n_frames`` frames, and
+        reading a device count syncs (``gated``: the gated march's
+        iterations, rewinds, the gate kernel's launches and steps past its
+        tile budget, the rewind kernel's launches)."""
         frames = self.last(int(last_n_frames))
         if frames is None:
             return None
@@ -230,7 +248,8 @@ class Recorder:
         rows = [r for _f, r in self.rows(frames)]
         out = {"frames": n, "sampled": len(rows),
                "host_ms": {k: v / n / 1e6 for k, v in host.items()},
-               "device_ms": {}, "gaps_ms": {}, "launches": {}}
+               "device_ms": {}, "gaps_ms": {}, "launches": {},
+               **{k: dict(v) for k, v in COUNTS.items()}}
         if not rows:
             return out
         m = len(rows)

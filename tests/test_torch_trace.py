@@ -259,8 +259,6 @@ def test_device_spans_match_events_around_the_graph(cuda, rec, monkeypatch,
     from cpuvox_tpu_torch.ops import march_loop
 
     monkeypatch.setattr(profiling, "SAMPLE_PERIOD", 1)
-    # at 1080p the graph's prologue and launch (some 0.1 ms, outside the
-    # four parts) are a few % of the march
     r = card_renderer(kind, cuda, screen=(1920, 1080))
     cams = card_cameras(r, screen=(1920, 1080))
     for cam in cams:
@@ -276,8 +274,35 @@ def test_device_spans_match_events_around_the_graph(cuda, rec, monkeypatch,
         events.append((e0, e1))
 
     monkeypatch.setattr(march_loop.MarchGraphExec, "launch", timed_launch)
-    torch.cuda.synchronize()
+
+    def events_ns():
+        e0, e1 = events[-1]
+        return e0.elapsed_time(e1) * 1e6
+
+    # the events also hold what the timers leave out: the graph's launch,
+    # its prologue and whatever follows the last control kernel.  That is
+    # measured on frames of the same variant whose rays are all dead (the
+    # stages' checks and packs alone run, and are timed) and taken off
+    setup = Renderer.frame_setup
+
+    def dead_setup(self, *a, **kw):
+        f = setup(self, *a, **kw)
+        return f._replace(alive0=torch.zeros_like(f.alive0))
+
+    outside = []
     for cam in cams:
+        monkeypatch.setattr(Renderer, "frame_setup", dead_setup)
+        runs = []
+        for _ in range(3):
+            r.render_device(cam)
+            torch.cuda.synchronize()
+            (_f, row), = rec.rows(rec.last(1))
+            assert row[profiling.LAUNCHES] == 0, "a dead frame rolled"
+            runs.append(events_ns() - profiling.device_split(row)["timed"])
+        outside.append(sorted(runs)[1])
+        monkeypatch.setattr(Renderer, "frame_setup", setup)
+    torch.cuda.synchronize()
+    for cam, out_ns in zip(cams, outside):
         n0 = march_loop.graph_stats["iterations"]
         c0 = march_loop.graph_stats["checks"]
         s0 = march_loop.stage_stats.read()
@@ -292,9 +317,8 @@ def test_device_spans_match_events_around_the_graph(cuda, rec, monkeypatch,
         parts = sum(split[k] for k in ("roll", "rasterizer", "gate_glue",
                                        "march_control"))
         assert parts == split["timed"]
-        e0, e1 = events[-1]
-        ev_ns = e0.elapsed_time(e1) * 1e6
-        assert abs(parts - ev_ns) <= 0.05 * ev_ns, (parts, ev_ns)
+        ev_ns = events_ns() - out_ns
+        assert abs(parts - ev_ns) <= 0.05 * ev_ns, (parts, ev_ns, out_ns)
         assert row[profiling.LAUNCHES:profiling.LAUNCHES + 3] == [
             its, its, its + checks]
         assert row[profiling.SLOTS] == slots
