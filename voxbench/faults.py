@@ -1,6 +1,7 @@
 """Faults planted in the timed path underneath a run, each of which has to
 make ``correct`` come out false (one card: no exchange between cards to
-leave out).
+leave out).  A camera-batch cell takes its own three (``BATCH_FAULTS``),
+of the same names.
 
     python3 voxbench/faults.py --workload <name> --seeds <n> [<n> ...] --seconds <s>
 
@@ -59,6 +60,69 @@ def pixel(r):
 FAULTS = {"stale": stale, "half_rays": half_rays, "pixel": pixel}
 
 
+def _marches(r, make):
+    """Puts ``make(f)`` in the place of each march a camera batch's group can
+    take (``march_batch_graph`` on the graph route, ``march_rays`` off it)."""
+    for name in ("march_batch_graph", "march_rays"):
+        setattr(r, name, make(getattr(r, name)))
+
+
+def stale_step(r):
+    """A step that returns the state it had: every group's march answers
+    with the raybuffer of one camera rendered before the window, repeated
+    over the group's cameras."""
+    from voxbench import path, program
+    from voxbench.trace import KeepBatch
+
+    cam = program.camera(
+        path.benchmark_pose(0.1, r.device_world.dims),
+        {"width": r.config.width, "height": r.config.height})
+    with KeepBatch(r) as k:
+        program.camera_batch(r, [cam])
+    first = k.blocks(1)[0].clone()
+
+    def make(_inner):
+        def march(static, *a, **kw):
+            return first.repeat(static.dirs.shape[0] // first.shape[0], 1)
+        return march
+
+    _marches(r, make)
+
+
+def half_rays_step(r):
+    """Half of each step's rays left out: every other raybuffer row of each
+    group keeps the skybox, so every camera loses half its rays."""
+    def make(inner):
+        def march(*a, **kw):
+            rb = inner(*a, **kw).clone()
+            rb[1::2] = 0
+            return rb
+        return march
+
+    _marches(r, make)
+
+
+def pixel_step(r):
+    """An answer altered where it is produced: one pixel of the first screen
+    of each direction group's phase 2 (one or two screens a step).  Returns
+    its undo."""
+    from voxbench import program
+
+    def make(inner):
+        def phase2_group(*a, **kw):
+            out = inner(*a, **kw).clone()
+            _b, h, w = out.shape
+            out[0, h // 2, w // 2] ^= 1
+            return out
+        return phase2_group
+
+    return program.hook_batch("phase2_group", make)
+
+
+BATCH_FAULTS = {"stale": stale_step, "half_rays": half_rays_step,
+                "pixel": pixel_step}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
@@ -69,10 +133,12 @@ def main(argv=None) -> int:
     from voxbench import harness, spec
 
     cell = spec.cell(spec.load(ROOT), args.workload)
+    faults = (BATCH_FAULTS if cell.traffic["entry"] == "render_camera_batch"
+              else FAULTS)
     for name in args.faults:
         for seed in args.seeds:
             res = harness.run_cell(cell, seed, args.seconds, False,
-                                   time.perf_counter(), fault=FAULTS[name])
+                                   time.perf_counter(), fault=faults[name])
             print(json.dumps({"workload": args.workload, "fault": name,
                               "seed": seed, "correct": res["correct"],
                               "failed": res["failed"],

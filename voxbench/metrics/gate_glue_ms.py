@@ -1,7 +1,8 @@
 """The gate glue inside the march graph, ms on the card a frame: the time from
 each roll launch's end to the rasterizer's start and from each rasterizer
-launch's end to the next control kernel's start (the gated march's tile
-gather, window gate, pack and rewind, the state copies, the node latencies),
+launch's end to the next control kernel's start (the gated march's gate
+kernel and its rewind kernel, ``csrc/gate.cu``, and the graph's node
+latencies around them; the dense march has only the node latencies),
 by the card's clock (the kernels' own sampled timers, ``csrc/timer.cuh``),
 the mean over the sampled frames among the last ``t.frames`` frames the
 program rendered, read from its recorder

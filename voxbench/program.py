@@ -1,8 +1,10 @@
 """What the benchmark takes from the program (``cpuvox_tpu_torch``): the
-Renderer under test, its camera type, its color resolve and its launch
-counter.  The only module of the benchmark that imports the program; it
-does so when it is imported, so that a checkout without the program fails
-before any world is built.
+Renderer under test, its camera type, its camera batch
+(``parallel/batch.py``), its color resolve and its launch counter.  It
+imports the program when it is imported, so that a checkout without the
+program fails before any world is built.  Besides it, only the readers of
+the program's own recorder (``voxbench/metrics/``, those that read
+``cpuvox_tpu_torch.utils.profiling``) import the program, when they read.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import numpy as np
 
 from cpuvox_tpu_torch.config import RenderConfig
 from cpuvox_tpu_torch.ops import march_loop
+from cpuvox_tpu_torch.parallel import batch as _batch
 from cpuvox_tpu_torch.render import raymarch
 from cpuvox_tpu_torch.render.camera import Camera
 from cpuvox_tpu_torch.render.frame import Renderer
@@ -46,10 +49,37 @@ def gate_on(r) -> bool:
 
 
 def captures(r) -> int:
-    """March-graph captures the Renderer has made (a capture in the window
-    would be a compile inside it)."""
+    """March-graph captures the Renderer has made, in its frame graph and
+    its camera batch's graphs (a capture in the window would be a compile
+    inside it)."""
     graphs = [r._graph] if r._graph is not None else []
+    graphs += list(r._batch_graphs.values())
     return sum(len(g.captures) for g in graphs)
+
+
+def camera_batch(r, cams):
+    """A step of a camera batch: (B, H, W) int32 ARGB bits on the card, one
+    screen a camera in the order of ``cams`` (``render_camera_batch``)."""
+    return _batch.render_camera_batch(r, cams)
+
+
+def bucket_size(n: int, cap: int) -> int:
+    """The cameras the batch pads a direction group of ``n`` to, in a batch
+    of ``cap``: each bucket is a march-graph variant of its own."""
+    return _batch.bucket_size(n, cap)
+
+
+def hook_batch(name: str, make):
+    """Puts ``make(f)`` in the place of the batch module's function ``name``
+    (``f``), where ``render_camera_batch`` looks it up, and returns the
+    callable that puts ``f`` back.  Hooks are undone in the reverse order."""
+    inner = getattr(_batch, name)
+    setattr(_batch, name, make(inner))
+
+    def undo():
+        setattr(_batch, name, inner)
+
+    return undo
 
 
 def raybuffer_argb(r, raybuf) -> np.ndarray:

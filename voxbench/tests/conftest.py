@@ -1,6 +1,6 @@
-"""A small cell for the benchmark's CPU tests: a 64 x 32 x 64 terrain at
-96 x 64, its files in a directory of its own, as a later change would add
-them."""
+"""Small cells for the benchmark's CPU tests: a 64 x 32 x 64 terrain at
+96 x 64 (one viewer) and at 48 x 32 (a camera batch of 8 agents), its files
+in a directory of its own, as a later change would add them."""
 import json
 import os
 import sys
@@ -29,22 +29,38 @@ def tiny_traffic(entry="render_device"):
     return t
 
 
+def tiny_batch_traffic(dispatch="waited"):
+    """A camera-batch mix: 8 agents a step at 48 x 32, looking both up and
+    down."""
+    return {"name": f"tiny-batch-{dispatch}", "entry": "render_camera_batch",
+            "dispatch": dispatch, "width": 48, "height": 32, "path": "agents",
+            "cameras_per_step": 8, "eye_height": 3.0, "speed": 1.5,
+            "turn_deg": 20.0, "pitch_deg": [-20.0, 30.0], "check_steps": 2,
+            "check_cameras": 2, "check_rays": 12}
+
+
 @pytest.fixture
 def tiny_dir(tmp_path):
-    """A benchmark directory with the tiny configuration and both traffic
-    mixes, and a BENCHMARK.json naming a cell of each."""
+    """A benchmark directory with the tiny configuration, both single-frame
+    traffic mixes and both camera-batch mixes, and a BENCHMARK.json naming
+    a cell of each."""
     (tmp_path / "configs").mkdir()
     (tmp_path / "traffic").mkdir()
     (tmp_path / "configs" / "tiny.json").write_text(json.dumps(TINY_CONFIG))
-    for entry in ("render_device", "render"):
-        t = tiny_traffic(entry)
+    mixes = [tiny_traffic(e) for e in ("render_device", "render")]
+    mixes += [tiny_batch_traffic(d) for d in ("waited", "ahead")]
+    for t in mixes:
         (tmp_path / "traffic" / f"{t['name']}.json").write_text(json.dumps(t))
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
         bench = json.load(f)
     bench["configs"] = [{"name": "tiny", "file": "configs/tiny.json"}]
     bench["workloads"] = [
         {"name": "tiny-ahead", "config": "tiny", "traffic": "tiny-render_device", "chips": 1},
-        {"name": "tiny-waited", "config": "tiny", "traffic": "tiny-render", "chips": 1}]
+        {"name": "tiny-waited", "config": "tiny", "traffic": "tiny-render", "chips": 1},
+        {"name": "tiny-batch-waited", "config": "tiny", "traffic": "tiny-batch-waited",
+         "chips": 1},
+        {"name": "tiny-batch-ahead", "config": "tiny", "traffic": "tiny-batch-ahead",
+         "chips": 1}]
     for m in bench["end_to_end"] + bench["per_layer"]:
         m.pop("workloads", None)
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
